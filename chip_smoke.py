@@ -14,10 +14,15 @@ the last line:
 1. build: every kernel of the port compiled from ``rave_tpu_torch/csrc``
    with ``nvcc`` (one process per source, in parallel).
 2. kernels: each kernel against its plain PyTorch version on the card,
-   over a grid of shapes (B1: atol 1e-4, rtol 1e-3; B2/B3: atol 1e-5,
-   rtol 1e-4), gradients through each ``autograd.Function``; then, at
-   the shapes the main path gives it, the same check and its time beside
-   the plain version's and its bound.
+   over a grid of shapes (B1: atol 1e-4, rtol 1e-3, k in {1, 3, 5},
+   T from 1 to 65535 * 64 + 1, C up to 512 with C=384, every GEMM-1
+   chunk width; B2/B3: atol 1e-5, rtol 1e-4, odd T, unaligned window
+   starts, co up to 64), gradients through each ``autograd.Function``;
+   then, at the shapes the main path gives it, the same check, the launch
+   configuration (CTAs, cluster, registers, shared memory), the
+   CUDA-event time of a call through the wrapper (``ms``) and the summed
+   device time of every kernel that call launches (``device_ms``,
+   ``torch.profiler``), each beside the plain version's, and its bounds.
 3. offline: the full-width v2 codec (``fused_kernels=true``, random
    weights from seed 0) serves a batch of 4 requests of 131072 samples;
    the output is finite, has the input's shape, agrees with the plain
@@ -56,6 +61,7 @@ import time
 SEED = 0
 BATCH, SAMPLES, CHUNK = 4, 131072, 2048
 PEAK_F32_FLOPS = 67e12   # H100 SXM, float32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # H100 SXM, dense TF32 on the tensor cores
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 KERNEL_TOL = dict(atol=1e-4, rtol=1e-3)
 GRAD_TOL = dict(atol=1e-3, rtol=1e-3)
@@ -96,6 +102,22 @@ def cuda_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, iters: int = 20) -> float:
+    """Device time of ``fn`` in ms: the summed time of every CUDA kernel
+    it runs, by ``torch.profiler`` over ``iters`` calls, per call.  Host
+    work and gaps between kernels are not counted."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / iters
+
+
 def unit_inputs(torch, B, C, T, k=3, seed=0):
     g = torch.Generator(device="cuda").manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
@@ -112,20 +134,33 @@ def phase_kernels(torch, ru, launches_per_shape):
     """Kernel B1 vs its plain twin, then timings at the main path's shapes."""
     max_err = 0.0
     n = 0
-    for C in (128, 256, 512):
-        for d in (1, 3, 9):
-            for T in (64, 333, 2048):
-                for B in (1, 4):
-                    args = unit_inputs(torch, B, C, T, seed=n)
-                    pl, pr = pads(3, d)
-                    got = ru.residual_unit_cuda(*args, d, pl, pr)
-                    want = ru.residual_unit_reference(*args, d, pl, pr)
-                    torch.cuda.synchronize()
-                    err = (got - want).abs().max().item()
-                    check(torch.allclose(got, want, **KERNEL_TOL),
-                          f"B1 C={C} d={d} T={T} B={B}: max err {err}")
-                    max_err = max(max_err, err)
-                    n += 1
+    grid = [(3, C, d, T, B) for C in (128, 256, 512) for d in (1, 3, 9)
+            for T in (1, 64, 333, 2048) for B in (1, 4)]
+    # other tap counts (1: no halo; 5: an 18- to 36-step halo) and the
+    # six-CTA cluster of C = 384
+    grid += [(k, C, d, T, 2) for k in (1, 5) for C in (128, 256, 384, 512)
+             for d in (1, 9) for T in (1, 333)]
+    # windows too wide for GEMM 1's chunks of 32 input channels: d = 300
+    # takes chunks of 16, d = 700 chunks of 8
+    for d, chunk in ((300, 16), (700, 8)):
+        got = ru.launch_info(1, 128, 333, 3, d)["chunk"]
+        check(got == chunk, f"B1 d={d}: chunk {got}, expected {chunk}")
+        grid.append((3, 128, d, 333, 1))
+    # more time tiles than grid.y or grid.z could hold (65535)
+    grid.append((3, 128, 1, 65535 * 64 + 1, 1))
+    for k, C, d, T, B in grid:
+        args = unit_inputs(torch, B, C, T, k=k, seed=n)
+        pl, pr = pads(k, d)
+        got = ru.residual_unit_cuda(*args, d, pl, pr)
+        want = ru.residual_unit_reference(*args, d, pl, pr)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(torch.allclose(got, want, **KERNEL_TOL),
+              f"B1 k={k} C={C} d={d} T={T} B={B}: max err {err}")
+        max_err = max(max_err, err)
+        n += 1
+    del args, got, want
+    torch.cuda.empty_cache()
 
     # one gradient through the autograd.Function
     args = [a.clone().requires_grad_(True)
@@ -146,30 +181,39 @@ def phase_kernels(torch, ru, launches_per_shape):
     for (B, T, C, d), count in launches_per_shape.items():
         args = unit_inputs(torch, B, C, T, seed=C + d)
         pl, pr = pads(3, d)
+        kernel = lambda: ru.residual_unit_cuda(*args, d, pl, pr)  # noqa: E731
+        plain = lambda: ru.residual_unit_reference(  # noqa: E731
+            *args, d, pl, pr)
         with torch.inference_mode():
-            got = ru.residual_unit_cuda(*args, d, pl, pr)
-            want = ru.residual_unit_reference(*args, d, pl, pr)
+            got, want = kernel(), plain()
             err = (got - want).abs().max().item()
             check(torch.allclose(got, want, **KERNEL_TOL),
                   f"B1 main-path shape {(B, T, C)} d={d}: max err {err}")
             max_err = max(max_err, err)
-            plain_ms = cuda_ms(torch, lambda: ru.residual_unit_reference(
-                *args, d, pl, pr))
-            ms = cuda_ms(torch, lambda: ru.residual_unit_cuda(
-                *args, d, pl, pr))
-            ms2 = cuda_ms(torch, lambda: ru.residual_unit_cuda(
-                *args, d, pl, pr))
-            plain_ms2 = cuda_ms(torch, lambda: ru.residual_unit_reference(
-                *args, d, pl, pr))
+            # call times: plain, kernel, kernel, plain; best of each pair
+            plain_ms = cuda_ms(torch, plain)
+            ms = cuda_ms(torch, kernel)
+            ms2 = cuda_ms(torch, kernel)
+            plain_ms2 = cuda_ms(torch, plain)
+            dev_ms, plain_dev_ms = device_ms(torch, kernel), device_ms(
+                torch, plain)
         k = 3
+        info = ru.launch_info(B, C, T, k, d)
+        check(info["ctas"] >= 128, f"B1 {(B, T, C)}: {info['ctas']} CTAs")
         flops = 2 * B * T * C * C * (k + 1)
         nbytes = 4 * (2 * B * T * C + (k + 1) * C * C + 2 * C)
-        t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        # the kernel runs on the tensor cores in 3xTF32: three products
+        # per term; the float32-FMA bound is kept beside it
+        t_f32 = flops / PEAK_F32_FLOPS * 1e3
+        t_ops = 3 * flops / PEAK_TF32_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
         shapes.append({
             "shape": [B, T, C], "dilation": d, "launches_per_forward": count,
-            "max_abs_err": err,
+            "max_abs_err": err, "launch": info,
             "ms": min(ms, ms2), "plain_ms": min(plain_ms, plain_ms2),
+            "device_ms": dev_ms, "plain_device_ms": plain_dev_ms,
             "bound_ms": max(t_ops, t_bytes), "ops_ms": t_ops,
+            "ops_ms_f32": t_f32, "bound_ms_f32": max(t_f32, t_bytes),
             "bytes_ms": t_bytes,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "gflop": flops / 1e9, "mbytes": nbytes / 1e6})
@@ -217,6 +261,28 @@ def phase_ci1_kernels(torch, ci, main_shapes):
                         err[name] = max(err[name], e)
                     n += 1
 
+    # odd T, windows that start off a 16-byte boundary, co other than 16
+    # (B3 stages 16 channel rows at a time)
+    for T in (1, 31, 1001, 8193):
+        for k in (2, 8, 16):
+            for pad in (((k - 1) // 2, k // 2), (0, k - 1)):
+                co = (1, 24, 64)[n % 3]
+                x, w, gy = ci1_inputs(torch, 3, T, k, co=co, seed=n)
+                pairs = (
+                    ("fwd", ci.conv1d_ci1_cuda(x, w, pad),
+                     ci.conv1d_ci1_reference(x, w, pad)),
+                    ("dx", ci.conv1d_ci1_dx_cuda(gy, w, pad),
+                     ci.conv1d_ci1_dx_reference(gy, w, pad)))
+                torch.cuda.synchronize()
+                for name, got, want in pairs:
+                    e = (got - want).abs().max().item()
+                    check(got.shape == want.shape and torch.allclose(
+                        got, want, **CI1_TOL),
+                        f"B2/B3 {name} T={T} k={k} pad={pad} co={co}: "
+                        f"max err {e}")
+                    err[name] = max(err[name], e)
+                n += 1
+
     # dx and dw through the autograd.Function vs autograd of the plain
     # composition (dw is the library rule in both)
     x, w, gy = ci1_inputs(torch, 4, 8192, 15, seed=99)
@@ -236,25 +302,30 @@ def phase_ci1_kernels(torch, ci, main_shapes):
     shapes = []
     for B, T in main_shapes:
         x, w, gy = ci1_inputs(torch, B, T, 15, seed=T)
-        row = {"shape": [B, T, 16], "k": 15, "pad": [7, 7]}
+        row = {"shape": [B, T, 16], "k": 15, "pad": [7, 7],
+               "dx_launch": ci.dx_launch_info(B, 16, 15, T)}
         with torch.no_grad():
             for name, cuda_fn, plain_fn, arg in (
                     ("fwd", ci.conv1d_ci1_cuda, ci.conv1d_ci1_reference, x),
                     ("dx", ci.conv1d_ci1_dx_cuda, ci.conv1d_ci1_dx_reference,
                      gy)):
-                got, want = cuda_fn(arg, w, (7, 7)), plain_fn(arg, w, (7, 7))
+                kernel = lambda: cuda_fn(arg, w, (7, 7))  # noqa: E731
+                plain = lambda: plain_fn(arg, w, (7, 7))  # noqa: E731
+                got, want = kernel(), plain()
                 e = (got - want).abs().max().item()
                 check(torch.allclose(got, want, **CI1_TOL),
                       f"B2/B3 {name} main-path shape {(B, T)}: max err {e}")
                 err[name] = max(err[name], e)
-                # plain, kernel, kernel, plain; best of each pair
-                plain_ms = cuda_ms(torch, lambda: plain_fn(arg, w, (7, 7)))
-                ms = cuda_ms(torch, lambda: cuda_fn(arg, w, (7, 7)))
-                ms2 = cuda_ms(torch, lambda: cuda_fn(arg, w, (7, 7)))
-                plain_ms2 = cuda_ms(torch, lambda: plain_fn(arg, w, (7, 7)))
+                # call times: plain, kernel, kernel, plain; best of each pair
+                plain_ms = cuda_ms(torch, plain)
+                ms = cuda_ms(torch, kernel)
+                ms2 = cuda_ms(torch, kernel)
+                plain_ms2 = cuda_ms(torch, plain)
                 t_ops, t_bytes = ci1_bound(B, T, 16, 15)
                 row[name] = {"max_abs_err": e, "ms": min(ms, ms2),
                              "plain_ms": min(plain_ms, plain_ms2),
+                             "device_ms": device_ms(torch, kernel),
+                             "plain_device_ms": device_ms(torch, plain),
                              "bound_ms": max(t_ops, t_bytes),
                              "ops_ms": t_ops, "bytes_ms": t_bytes}
         shapes.append(row)
@@ -577,7 +648,10 @@ def main() -> int:
             streamer.forward(signal[i:i + CHUNK].reshape(1, -1, 1))
 
     with torch.inference_mode():
-        prof_offline = device_profile(torch, lambda: model(x))
+        prof_offline = device_profile(torch, lambda: model(x),
+                                      names=("residual_unit_kernel",))
+    prof_offline["share"] = {n: ms / prof_offline["device_ms"]
+                             for n, ms in prof_offline["named_ms"].items()}
     streamer.reset()
     prof_stream = device_profile(torch, stream_chunks)
     emit({"phase": "profile", "offline_batch": prof_offline,
@@ -595,10 +669,12 @@ def main() -> int:
         "replaces": "rave_tpu/ops/pallas/residual_unit.py:62",
         "checked": True, "launches": launches["residual_unit"],
         "max_abs_err": max_err, "ms": total("ms"),
-        "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+        "plain_ms": total("plain_ms"), "device_ms": total("device_ms"),
+        "plain_device_ms": total("plain_device_ms"),
+        "bound_ms": total("bound_ms"),
         "bound_by": ("operations" if total("ops_ms") >= total("bytes_ms")
                      else "bytes"),
-        "library_ms": None}]
+        "bound_ms_f32": total("bound_ms_f32"), "library_ms": None}]
     # B2/B3: one launch per head and G step; the plain twin is one
     # PyTorch call (F.conv1d, conv1d_input), so it is the library time
     for name, key, line, launches in (
@@ -611,7 +687,9 @@ def main() -> int:
             "replaces": f"rave_tpu/ops/pallas/ci1_conv.py:{line}",
             "checked": True, "launches": launches,
             "max_abs_err": ci1_err[key], "ms": per("ms"),
-            "plain_ms": per("plain_ms"), "bound_ms": per("bound_ms"),
+            "plain_ms": per("plain_ms"), "device_ms": per("device_ms"),
+            "plain_device_ms": per("plain_device_ms"),
+            "bound_ms": per("bound_ms"),
             "bound_by": ("operations" if per("ops_ms") >= per("bytes_ms")
                          else "bytes"),
             "library_ms": per("plain_ms")})

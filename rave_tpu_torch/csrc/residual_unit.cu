@@ -1,4 +1,5 @@
-// Fused dilated residual unit (kernel B1) for Hopper, f32.
+// Fused dilated residual unit (kernel B1) for Hopper: tensor cores at
+// float32 accuracy (3xTF32 with mma.sync) and thread-block clusters.
 //
 // Replaces the Pallas TPU kernel `_kernel` of
 // rave_tpu/ops/pallas/residual_unit.py (launched by `_pallas_forward`).
@@ -8,155 +9,544 @@
 //              + W2 . lrelu(b1 + sum_j W1[j] . lrelu(x)[b, :, t + j*d - pad_left])
 //
 // with lrelu slope 0.2, zero padding outside [0, T) and a same-length
-// output.  Weights arrive as w1t (k, C_in, C_out) and w2t (C_in, C_out),
-// output channel fastest.
+// output.  The weights arrive K-major (input channel fastest): w1k is
+// (k, C_out, C_in) and w2 (C_out, C_in).
 //
 // What bounds it: 2*B*T*C^2*(k+1) FLOPs against 2*B*T*C*4 + (k+1)*C^2*4
 // bytes, over 100 FLOP per byte at every shape of the v2 model, so the
-// card's f32 rate bounds it, not its memory.  The design keeps every
-// intermediate on chip, as the TPU kernel did: one block owns one batch
-// row and a tile of `tile` time steps for ALL channels, stages
-// lrelu(x) over the tile plus its halo in shared memory, computes the
-// hidden (C, tile) activation into shared memory, and applies the 1x1
-// conv, both biases and the residual before a single store.  Each thread
-// keeps an 8 x 8 register tile (8 output channels, 8 time steps strided
-// by the number of time groups, so that a warp reads consecutive shared
-// words and stores consecutive global words).  Plain f32 FMAs, no TF32:
-// the TPU kernel computes at Precision.HIGHEST.  No tensor cores, TMA or
-// bf16 yet; the tile is sized so the hidden buffer is 64 KB.
+// arithmetic bounds it, not the memory.  On float32 FMAs that is 67
+// TFLOP/s; on the tensor cores 495 TFLOP/s of TF32, of which 3xTF32 takes
+// three products per term.
+//
+// Design.
+// * One CTA owns one batch row, one 64-step time tile and one group of 64
+//   output channels.  The C/64 CTAs of a time tile form a cluster (2, 4,
+//   6, 8 at C = 128, 256, 384, 512), so a v2 forward launches 128-256
+//   CTAs per unit and each CTA reads only its 64 rows of W1 and W2.
+// * GEMM 1, hidden(64 x 64) = W1-rows . window, K = k*C: input channels
+//   stream in chunks of KC (32, or 16/8 where a wide window must fit: at
+//   k = 3, 32 up to d = 273, 16 up to 673, 8 up to 1489)
+//   through a double buffer filled with cp.async: the x window of the
+//   chunk (tile plus its (k-1)*d halo, zero outside [0, T); 16-byte
+//   copies from the aligned step before the window where T % 4 == 0,
+//   4-byte copies otherwise) and the chunk's slice of all k taps of W1
+//   (16-byte copies).  lrelu is applied as a fragment is read.  The
+//   window keeps x's time-contiguous rows: with mma.sync the B operand is
+//   read from it bank-conflict-free (row stride = 8 mod 32 words) and tap
+//   j is a column offset j*d, not a copy.
+// * hidden = lrelu(acc + b1) stays in shared memory (64 x 64); it never
+//   goes to device memory.  After cluster.sync() each CTA reads its
+//   peers' hidden tiles through distributed shared memory
+//   (cluster.map_shared_rank), 32 channels at a time into a local double
+//   buffer, and contracts them with its 64 rows of W2 (GEMM 2, K = C).
+// * The epilogue adds b2, stages the tile in shared memory and adds the
+//   residual x while storing: a warp stores (and reads x) along 32
+//   consecutive time steps.  A second cluster.sync() before exit keeps
+//   each CTA's hidden tile alive while its peers read it.
+// * Arithmetic: mma.sync.m16n8k8 TF32.  8 warps in two groups of 4 split
+//   each chunk's (tap, k8-step) pairs; in a group each warp owns 32
+//   channels x 32 steps; the groups' sums meet in shared memory.  The TPU
+//   kernel computes at Precision.HIGHEST, so each operand is split,
+//   hi = TF32 rounding of a (to nearest), lo = a - hi, and every term
+//   accumulates lo*hi + hi*lo + hi*hi in float32 (3xTF32).
+// * What holds it back (clock64 phases on the H100, C = 512): about a
+//   quarter of a CTA's time is spent issuing the next chunk's cp.async
+//   (every warp stalls at issue while ~35 KB per chunk are in flight),
+//   and the mma loop runs at about half of mma.sync's TF32 rate.  A ninth
+//   warp that stages alone through an mbarrier pipeline (cp.async; or
+//   bulk copies of the W1 chunk and of each x row, 2-4 stages) was right
+//   but slower in every variant measured: each chunk then waits out the
+//   copies' latency.  Left to try: TMA tensor copies with multicast of
+//   the x window across the cluster, then wgmma (which wants K-major
+//   swizzled shared-memory operands; a j*d row offset does not meet the
+//   swizzle, so A would come from registers).
+// * The dynamic shared-memory limit is raised once per device, and the
+//   launch sets the cluster size with cudaLaunchKernelEx.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <initializer_list>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr float kNegSlope = 0.2f;
-constexpr int kRT = 8;  // register tile: kRT channels x kRT time steps
+constexpr int kTile = 64;      // time steps per CTA
+constexpr int kGroup = 64;     // output channels per CTA
+// 8 warps: two groups of 4 split the K range of every chunk; in a group,
+// 2 warps along channels x 2 along time, each 32 channels x 32 steps
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kNT = 4;  // n8 tiles of a warp
+constexpr int kHs = kTile + 8;   // row stride of hidden / epilogue tiles
+constexpr int kKC2 = 32;         // hidden channels per GEMM-2 chunk
+constexpr int kWs2 = kKC2 + 4;   // row stride of a W2 chunk
+constexpr int kMaxSmem = 232448; // what a Hopper CTA may use
+constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float lrelu(float v) {
   return v >= 0.f ? v : kNegSlope * v;
 }
 
-__global__ void residual_unit_kernel(const float* __restrict__ x,
-                                     const float* __restrict__ w1t,
-                                     const float* __restrict__ b1,
-                                     const float* __restrict__ w2t,
-                                     const float* __restrict__ b2,
-                                     float* __restrict__ out, int C, int T,
-                                     int k, int dilation, int pad_left,
-                                     int tile) {
-  extern __shared__ float smem[];
-  const int win = tile + (k - 1) * dilation;
-  float* xs = smem;             // [C][win]  lrelu(x) over tile + halo
-  float* hs = smem + C * win;   // [C][tile] hidden activation
-
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * tile;
-  const float* xb = x + static_cast<size_t>(b) * C * T;
-  float* ob = out + static_cast<size_t>(b) * C * T;
-
-  // 1. stage lrelu(x)[t0 - pad_left, t0 - pad_left + win), zero outside
-  for (int i = threadIdx.x; i < C * win; i += blockDim.x) {
-    const int c = i / win;
-    const int t = t0 - pad_left + (i - c * win);
-    xs[i] = (t >= 0 && t < T) ? lrelu(xb[static_cast<size_t>(c) * T + t])
-                              : 0.f;
-  }
-  __syncthreads();
-
-  const int tgroups = tile / kRT;
-  const int tg = threadIdx.x % tgroups;   // time steps tg + u * tgroups
-  const int co0 = (threadIdx.x / tgroups) * kRT;
-  float acc[kRT][kRT];
-
-  // 2. hidden = lrelu(b1 + dilated k-tap conv), into shared memory
-#pragma unroll
-  for (int i = 0; i < kRT; ++i) {
-    const float bias = b1[co0 + i];
-#pragma unroll
-    for (int u = 0; u < kRT; ++u) acc[i][u] = bias;
-  }
-  for (int j = 0; j < k; ++j) {
-    const float* wj = w1t + static_cast<size_t>(j) * C * C + co0;
-    const float* xj = xs + tg + j * dilation;
-#pragma unroll 4
-    for (int ci = 0; ci < C; ++ci) {
-      const float4 wa = *reinterpret_cast<const float4*>(wj + ci * C);
-      const float4 wb = *reinterpret_cast<const float4*>(wj + ci * C + 4);
-      const float w[kRT] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-      float xv[kRT];
-#pragma unroll
-      for (int u = 0; u < kRT; ++u) xv[u] = xj[ci * win + u * tgroups];
-#pragma unroll
-      for (int i = 0; i < kRT; ++i)
-#pragma unroll
-        for (int u = 0; u < kRT; ++u) acc[i][u] = fmaf(w[i], xv[u], acc[i][u]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kRT; ++i)
-#pragma unroll
-    for (int u = 0; u < kRT; ++u)
-      hs[(co0 + i) * tile + tg + u * tgroups] = lrelu(acc[i][u]);
-  __syncthreads();
-
-  // 3. y = x + b2 + W2 . hidden
-#pragma unroll
-  for (int i = 0; i < kRT; ++i) {
-    const float bias = b2[co0 + i];
-#pragma unroll
-    for (int u = 0; u < kRT; ++u) acc[i][u] = bias;
-  }
-#pragma unroll 4
-  for (int ci = 0; ci < C; ++ci) {
-    const float4 wa = *reinterpret_cast<const float4*>(w2t + ci * C + co0);
-    const float4 wb = *reinterpret_cast<const float4*>(w2t + ci * C + co0 + 4);
-    const float w[kRT] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-    float hv[kRT];
-#pragma unroll
-    for (int u = 0; u < kRT; ++u) hv[u] = hs[ci * tile + tg + u * tgroups];
-#pragma unroll
-    for (int i = 0; i < kRT; ++i)
-#pragma unroll
-      for (int u = 0; u < kRT; ++u) acc[i][u] = fmaf(w[i], hv[u], acc[i][u]);
-  }
-#pragma unroll
-  for (int i = 0; i < kRT; ++i) {
-    const size_t row = static_cast<size_t>(co0 + i) * T;
-#pragma unroll
-    for (int u = 0; u < kRT; ++u) {
-      const int t = t0 + tg + u * tgroups;
-      if (t < T) ob[row + t] = xb[row + t] + acc[i][u];
-    }
-  }
+// v = hi + lo: hi is v rounded to TF32 (to nearest, ties away from zero,
+// as cvt.rna.tf32.f32 but in two integer ops: the cvt runs on a slower
+// pipe), lo = v - hi exactly; the tensor core reads lo's top 19 bits.
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
 }
 
-// Time tile for C channels: the hidden buffer C * tile floats is 64 KB and
-// every block has (C / 8) * (tile / 8) threads (256 at C = 128, 256, 512).
-int tile_for(int C) { return C <= 128 ? 128 : (C <= 256 ? 64 : 32); }
+__device__ __forceinline__ void mma(float* c, const uint32_t* a,
+                                    const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 4-byte copy; bytes = 0 writes a zero
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Window row stride: the least S >= W + 6 (the window, up to 3 floats of
+// alignment shift and the round-up to a 16-byte piece) with S = 8 (mod
+// 32), so that the B fragment's 4 rows x 8 columns fall in 32 distinct
+// banks.
+__host__ __device__ inline int window_stride(int k, int dilation) {
+  const int w = kTile + (k - 1) * dilation + 6;
+  return ((w + 23) / 32) * 32 + 8;
+}
+
+// Floats of dynamic shared memory: the hidden tile, then the larger of
+// GEMM 1's and GEMM 2's double buffers (the epilogue tile reuses them).
+__host__ __device__ inline int smem_floats(int kc, int k, int dilation) {
+  const int g1 = 2 * kc * window_stride(k, dilation) +
+                 2 * k * kGroup * (kc + 4);
+  const int g2 = 2 * kKC2 * kHs + 2 * kGroup * kWs2;
+  return kGroup * kHs + (g1 > g2 ? g1 : g2);
+}
+
+// One warp's 32 x (8 kNT) product over 8 of K: A (channels x K) from `a`
+// with row stride `as`, B (K x time) from `bm` with row stride `bs`;
+// each operand split into TF32 hi and lo.
+template <bool kLreluB>
+__device__ __forceinline__ void mma_k8(float (*acc)[kNT][4], const float* a,
+                                       int as, const float* bm, int bs,
+                                       int gid, int tig) {
+  uint32_t ah[2][4], al[2][4], bh[kNT][2], bl[kNT][2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const float* p = a + (mt * 16 + gid) * as + tig;
+    split(p[0], ah[mt][0], al[mt][0]);
+    split(p[8 * as], ah[mt][1], al[mt][1]);
+    split(p[4], ah[mt][2], al[mt][2]);
+    split(p[8 * as + 4], ah[mt][3], al[mt][3]);
+  }
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) {
+    const float* p = bm + tig * bs + nt * 8 + gid;
+    float v0 = p[0], v1 = p[4 * bs];
+    if (kLreluB) {
+      v0 = lrelu(v0);
+      v1 = lrelu(v1);
+    }
+    split(v0, bh[nt][0], bl[nt][0]);
+    split(v1, bh[nt][1], bl[nt][1]);
+  }
+  // three passes over the 2 x kNT accumulators, small products first:
+  // consecutive mma never wait on each other's result
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) mma(acc[mt][nt], al[mt], bh[nt]);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) mma(acc[mt][nt], ah[mt], bl[nt]);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) mma(acc[mt][nt], ah[mt], bh[nt]);
+}
+
+// dst (64 x 64, row stride kHs) = act(group 0's + group 1's accumulators
+// + bias[row]); act is lrelu or nothing.  The fragment holds rows gid and
+// gid + 8, columns 2*tig and 2*tig + 1 of each 16 x 8 tile.  Group 1
+// writes its sum first; the caller syncs before anyone reads dst.
+__device__ __forceinline__ void reduce_groups(float (*acc)[kNT][4],
+                                              float* dst, int grp, int wm,
+                                              int wt, int gid, int tig,
+                                              const float* bias,
+                                              bool act) {
+  auto each = [&](auto&& fn) {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = wm * 32 + mt * 16 + gid + 8 * h;
+          fn(reinterpret_cast<float2*>(dst + r * kHs + wt + nt * 8 + 2 * tig),
+             acc[mt][nt] + 2 * h, r);
+        }
+  };
+  if (grp == 1) each([](float2* d, const float* a, int) {
+    *d = make_float2(a[0], a[1]);
+  });
+  __syncthreads();
+  if (grp == 0) each([&](float2* d, const float* a, int r) {
+    const float2 o = *d;
+    float v0 = a[0] + o.x + bias[r], v1 = a[1] + o.y + bias[r];
+    if (act) {
+      v0 = lrelu(v0);
+      v1 = lrelu(v1);
+    }
+    *d = make_float2(v0, v1);
+  });
+}
+
+template <int KC>
+__global__ void __launch_bounds__(kThreads)
+    residual_unit_kernel(const float* __restrict__ x,
+                         const float* __restrict__ w1k,
+                         const float* __restrict__ b1,
+                         const float* __restrict__ w2,
+                         const float* __restrict__ b2,
+                         float* __restrict__ out, int C, int T, int k,
+                         int dilation, int pad_left) {
+  constexpr int kWs = KC + 4;  // W1 chunk row stride (= 4 mod 8 words)
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+
+  const int win = kTile + (k - 1) * dilation;
+  const int xs_stride = window_stride(k, dilation);
+  float* hs = smem;                          // [64][kHs] hidden, own rows
+  float* region = smem + kGroup * kHs;
+  float* xbuf = region;                      // [2][KC][xs_stride]
+  float* wbuf = region + 2 * KC * xs_stride; // [2][k][64][kWs]
+  float* hbuf = region;                      // GEMM 2: [2][32][kHs]
+  float* w2buf = region + 2 * kKC2 * kHs;    //         [2][64][kWs2]
+
+  const int group = static_cast<int>(cluster.block_rank());
+  const int co0 = group * kGroup;
+  const int t0 = blockIdx.x * kTile;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int grp = warp >> 2;                   // K-split group
+  const int wm = (warp >> 1) & 1, wn = warp & 1;
+  const int wt = wn * kNT * 8;  // warp's first time step in the tile
+  const float* xb = x + static_cast<size_t>(b) * C * T;
+
+  // ---- GEMM 1: hidden = lrelu(b1 + sum_j W1[j] . lrelu(x) window) ----
+  // Where T % 4 == 0 and x is 16-byte aligned, every row of the window
+  // is staged in 16-byte pieces from the aligned step xshift (0-3) before
+  // t0 - pad_left, and fragments read it xshift floats in; otherwise
+  // element by element.
+  const bool xvec =
+      T % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const int xshift = xvec ? ((t0 - pad_left) & 3) : 0;
+  const int xstart = t0 - pad_left - xshift;
+  auto stage1 = [&](int chunk, int s) {
+    const int ci0 = chunk * KC;
+    float* xd = xbuf + s * KC * xs_stride;
+    for (int r = warp; r < KC; r += kWarps) {
+      const float* src = xb + static_cast<size_t>(ci0 + r) * T;
+      float* dst = xd + r * xs_stride;
+      if (xvec) {
+        for (int c = 4 * lane; c < xshift + win; c += 128) {
+          const int t = xstart + c;
+          if (t >= 0 && t + 4 <= T) {
+            cp_async16(dst + c, src + t);
+          } else {
+            float v[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              v[i] = (t + i >= 0 && t + i < T) ? src[t + i] : 0.f;
+            *reinterpret_cast<float4*>(dst + c) =
+                make_float4(v[0], v[1], v[2], v[3]);
+          }
+        }
+      } else {
+        for (int c = lane; c < win; c += 32) {
+          const int t = xstart + c;
+          const bool in = t >= 0 && t < T;
+          cp_async4(dst + c, in ? src + t : src, in ? 4 : 0);
+        }
+      }
+    }
+    constexpr int kQ = KC / 4;  // 16-byte pieces per weight row
+    float* wd = wbuf + s * k * kGroup * kWs;
+    for (int i = tid; i < k * kGroup * kQ; i += kThreads) {
+      const int row = i / kQ, q = i % kQ;  // row = j * 64 + m
+      const int j = row / kGroup, m = row % kGroup;
+      cp_async16(wd + row * kWs + 4 * q,
+                 w1k + (static_cast<size_t>(j) * C + co0 + m) * C + ci0 +
+                     4 * q);
+    }
+    cp_async_commit();
+  };
+
+  float acc[2][kNT][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  const int n1 = C / KC;
+  stage1(0, 0);
+  for (int chunk = 0; chunk < n1; ++chunk) {
+    const int s = chunk & 1;
+    if (chunk + 1 < n1) {
+      stage1(chunk + 1, s ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* xd = xbuf + s * KC * xs_stride + xshift + wt;
+    const float* wd = wbuf + s * k * kGroup * kWs + wm * 32 * kWs;
+    // (tap, k8 step) pairs of the chunk, alternately to the two groups
+    for (int p = grp; p < k * (KC / 8); p += 2) {
+      const int j = p / (KC / 8), kk = p % (KC / 8);
+      mma_k8<true>(acc, wd + j * kGroup * kWs + kk * 8, kWs,
+                   xd + kk * 8 * xs_stride + j * dilation, xs_stride, gid,
+                   tig);
+    }
+    __syncthreads();
+  }
+
+  // hidden tile = lrelu(group 0 + group 1 + b1)
+  reduce_groups(acc, hs, grp, wm, wt, gid, tig, b1 + co0, true);
+
+  // ---- GEMM 2: y = W2-rows . hidden of the whole cluster ----
+  auto stage_w2 = [&](int chunk, int s) {
+    float* wd = w2buf + s * kGroup * kWs2;
+    for (int i = tid; i < kGroup * (kKC2 / 4); i += kThreads) {
+      const int m = i / (kKC2 / 4), q = i % (kKC2 / 4);
+      cp_async16(wd + m * kWs2 + 4 * q,
+                 w2 + static_cast<size_t>(co0 + m) * C + chunk * kKC2 +
+                     4 * q);
+    }
+    cp_async_commit();
+  };
+  // 32 hidden rows of a peer = 512 float4, 4 per thread
+  constexpr int kH4 = kKC2 * (kTile / 4) / kThreads;
+  float4 hreg[kH4];
+  auto load_h = [&](int chunk) {
+    const float* peer = cluster.map_shared_rank(hs, (chunk * kKC2) / kGroup);
+    const float* src = peer + ((chunk * kKC2) % kGroup) * kHs;
+#pragma unroll
+    for (int u = 0; u < kH4; ++u) {
+      const int i = tid + u * kThreads;
+      hreg[u] = *reinterpret_cast<const float4*>(src + (i >> 4) * kHs +
+                                                 4 * (i & 15));
+    }
+  };
+  auto store_h = [&](int s) {
+    float* dst = hbuf + s * kKC2 * kHs;
+#pragma unroll
+    for (int u = 0; u < kH4; ++u) {
+      const int i = tid + u * kThreads;
+      *reinterpret_cast<float4*>(dst + (i >> 4) * kHs + 4 * (i & 15)) =
+          hreg[u];
+    }
+  };
+
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  const int n2 = C / kKC2;
+  stage_w2(0, 0);
+  cluster.sync();  // every hidden tile of the cluster is written
+  load_h(0);
+  store_h(0);
+  for (int chunk = 0; chunk < n2; ++chunk) {
+    const int s = chunk & 1;
+    const bool more = chunk + 1 < n2;
+    if (more) {
+      stage_w2(chunk + 1, s ^ 1);
+      load_h(chunk + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* hd = hbuf + s * kKC2 * kHs + wt;
+    const float* wd = w2buf + s * kGroup * kWs2 + wm * 32 * kWs2;
+#pragma unroll
+    for (int kk = grp; kk < kKC2 / 8; kk += 2)
+      mma_k8<false>(acc, wd + kk * 8, kWs2, hd + kk * 8 * kHs, kHs, gid,
+                    tig);
+    if (more) store_h(s ^ 1);
+    __syncthreads();
+  }
+
+  // ---- epilogue: out = x + (acc + b2), stored along time ----
+  float* ot = region;  // [64][kHs]
+  reduce_groups(acc, ot, grp, wm, wt, gid, tig, b2 + co0, false);
+  __syncthreads();
+  for (int m = warp; m < kGroup; m += kWarps) {
+    const size_t row = static_cast<size_t>(b) * C * T +
+                       static_cast<size_t>(co0 + m) * T;
+#pragma unroll
+    for (int c = lane; c < kTile; c += 32) {
+      const int t = t0 + c;
+      if (t < T) out[row + t] = x[row + t] + ot[m * kHs + c];
+    }
+  }
+  cluster.sync();  // peers have finished reading this CTA's hidden tile
+}
+
+// Raise a kernel's dynamic shared-memory limit once per device.
+template <auto Kernel>
+cudaError_t max_smem_once() {
+  static bool done[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return err;
+}
+
+// The time tiles go on grid.x, which takes up to 2^31 - 1 blocks, so any
+// int T fits; grid.y (the channel groups, one cluster) and grid.z (batch
+// rows) take up to 65535.
+struct Plan {
+  int kc;          // input channels per GEMM-1 chunk; 0: nothing fits
+  size_t smem;     // dynamic shared memory, bytes
+  dim3 grid;       // (ceil(T / 64), C / 64, B)
+  int cluster;     // C / 64, along grid.y
+};
+
+Plan plan_for(int B, int C, int T, int k, int dilation) {
+  Plan p{0, 0, dim3((T + kTile - 1) / kTile, (C + kGroup - 1) / kGroup, B),
+         (C + kGroup - 1) / kGroup};
+  for (int kc : {32, 16, 8}) {
+    const size_t bytes = sizeof(float) * smem_floats(kc, k, dilation);
+    if (bytes <= static_cast<size_t>(kMaxSmem)) {
+      p.kc = kc;
+      p.smem = bytes;
+      break;
+    }
+  }
+  return p;
+}
+
+template <int KC>
+cudaError_t launch(const Plan& p, const float* x, const float* w1k,
+                   const float* b1, const float* w2, const float* b2,
+                   float* out, int C, int T, int k, int dilation,
+                   int pad_left, cudaStream_t stream) {
+  cudaError_t err = max_smem_once<residual_unit_kernel<KC>>();
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = p.grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = p.cluster;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, residual_unit_kernel<KC>, x, w1k, b1, w2,
+                           b2, out, C, T, k, dilation, pad_left);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
 
 }  // namespace
 
 // Launch on `stream`; returns the cudaError_t of the launch.  The caller
-// guarantees C % 8 == 0, contiguous float32 tensors and 16-byte aligned
-// weights.
-extern "C" int residual_unit_forward(const float* x, const float* w1t,
-                                     const float* b1, const float* w2t,
+// guarantees contiguous float32 tensors, C % 64 == 0, C <= 512 (a cluster
+// of at most 8), pad_left <= (k - 1) * dilation and 16-byte aligned
+// weights.  A window too wide for chunks of 8 input channels returns
+// cudaErrorInvalidValue.
+extern "C" int residual_unit_forward(const float* x, const float* w1k,
+                                     const float* b1, const float* w2,
                                      const float* b2, float* out, int B,
                                      int C, int T, int k, int dilation,
                                      int pad_left, void* stream) {
-  const int tile = tile_for(C);
-  const size_t smem = sizeof(float) * (static_cast<size_t>(C) *
-                                       (2 * tile + (k - 1) * dilation));
-  cudaError_t err = cudaFuncSetAttribute(
-      residual_unit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  if (C % kGroup || C > 8 * kGroup || B < 1 || T < 1 || k < 1)
+    return cudaErrorInvalidValue;
+  const Plan p = plan_for(B, C, T, k, dilation);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (p.kc) {
+    case 32:
+      return launch<32>(p, x, w1k, b1, w2, b2, out, C, T, k, dilation,
+                        pad_left, s);
+    case 16:
+      return launch<16>(p, x, w1k, b1, w2, b2, out, C, T, k, dilation,
+                        pad_left, s);
+    case 8:
+      return launch<8>(p, x, w1k, b1, w2, b2, out, C, T, k, dilation,
+                       pad_left, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// What a launch at this shape uses: info = {CTAs, cluster size, threads
+// per CTA, dynamic shared memory bytes, registers per thread, KC}.
+extern "C" int residual_unit_launch_info(int B, int C, int T, int k,
+                                         int dilation, int* info) {
+  const Plan p = plan_for(B, C, T, k, dilation);
+  cudaFuncAttributes attr = {};
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (p.kc) {
+    case 32: err = cudaFuncGetAttributes(&attr, residual_unit_kernel<32>); break;
+    case 16: err = cudaFuncGetAttributes(&attr, residual_unit_kernel<16>); break;
+    case 8: err = cudaFuncGetAttributes(&attr, residual_unit_kernel<8>); break;
+  }
   if (err != cudaSuccess) return err;
-  const dim3 grid((T + tile - 1) / tile, B);
-  const int threads = (C / kRT) * (tile / kRT);
-  residual_unit_kernel<<<grid, threads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      x, w1t, b1, w2t, b2, out, C, T, k, dilation, pad_left, tile);
-  return cudaGetLastError();
+  info[0] = static_cast<int>(p.grid.x * p.grid.y * p.grid.z);
+  info[1] = p.cluster;
+  info[2] = kThreads;
+  info[3] = static_cast<int>(p.smem);
+  info[4] = attr.numRegs;
+  info[5] = p.kc;
+  return cudaSuccess;
 }
 
 extern "C" const char* residual_unit_error_string(int code) {

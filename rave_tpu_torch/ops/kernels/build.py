@@ -58,6 +58,7 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self._lib = None
         self._fn = None
         self._error_string = None
 
@@ -104,8 +105,21 @@ class CudaKernel:
             err = getattr(lib, f"{self.source.stem}_error_string")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
-            self._fn, self._error_string = fn, err
+            self._lib, self._fn, self._error_string = lib, fn, err
         return self._fn
+
+    def query(self, symbol: str, *args) -> None:
+        """Call another ``int`` function of the same library (one that
+        launches nothing, e.g. a launch-configuration query); raise if it
+        does not return 0."""
+        self._bind()
+        fn = getattr(self._lib, symbol)
+        fn.restype = ctypes.c_int
+        code = fn(*args)
+        if code != 0:
+            msg = self._error_string(code).decode()
+            raise RuntimeError(f"{self.name}: {symbol} failed: {msg} "
+                               f"(cudaError {code})")
 
     def launch(self, *args) -> None:
         """Call the launcher; raise if the launch was refused."""

@@ -92,6 +92,15 @@ def conv1d_ci1_dx_cuda(g, w, pad) -> torch.Tensor:
     return dx
 
 
+def dx_launch_info(B: int, co: int, k: int, T: int) -> dict:
+    """What one launch of kernel B3 at this shape uses on the current
+    card: blocks, threads per block, shared memory and registers per
+    thread."""
+    info = (ctypes.c_int * 4)()
+    DX.query("ci1_conv_dx_launch_info", B, co, k, T, info)
+    return dict(zip(("blocks", "threads", "smem_bytes", "registers"), info))
+
+
 def _on(device: torch.device, cuda_fn, plain_fn, *args) -> torch.Tensor:
     if device.type == "cpu":
         return plain_fn(*args)

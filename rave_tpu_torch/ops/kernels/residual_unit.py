@@ -12,7 +12,9 @@ does the same).  On a CPU tensor it runs :func:`residual_unit_reference`,
 and only for that reason; a build or launch failure on the card raises.
 
 Layouts are the port's: ``x`` ``(B, C, T)``, ``w1`` ``(C, C, k)`` (the
-``F.conv1d`` weight), ``w2`` ``(C, C)`` as ``(out, in)``.
+``F.conv1d`` weight), ``w2`` ``(C, C)`` as ``(out, in)``.  The kernel reads
+the weights K-major, input channel fastest (:func:`prepare_weights`):
+``w1`` as ``(k, C_out, C_in)`` and ``w2`` as it is.
 """
 
 from __future__ import annotations
@@ -59,24 +61,41 @@ def _check(x, w1, b1, w2, b2, dilation, pad_left, pad_right) -> None:
         raise ValueError("residual_unit: padding must keep the length")
 
 
+def prepare_weights(w1, w2):
+    """The weight operands as the kernel reads them, K-major (input
+    channel fastest): ``w1k[j, co, ci] = w1[co, ci, j]``, ``(k, C, C)``,
+    and ``w2`` ``(C_out, C_in)`` as it is."""
+    return (w1.detach().permute(2, 0, 1).contiguous(),
+            w2.detach().contiguous())
+
+
 def residual_unit_cuda(x, w1, b1, w2, b2, dilation: int, pad_left: int,
                        pad_right: int) -> torch.Tensor:
     """Launch the CUDA kernel (forward only, no autograd)."""
     _check(x, w1, b1, w2, b2, dilation, pad_left, pad_right)
     x = x.contiguous()
-    w1t = w1.detach().permute(2, 1, 0).contiguous()   # (k, C_in, C_out)
-    w2t = w2.detach().t().contiguous()                # (C_in, C_out)
+    w1k, w2k = prepare_weights(w1, w2)
     b1, b2 = b1.detach().contiguous(), b2.detach().contiguous()
-    if w1t.data_ptr() % 16 or w2t.data_ptr() % 16:
+    if w1k.data_ptr() % 16 or w2k.data_ptr() % 16:
         raise ValueError("residual_unit: weights must be 16-byte aligned")
     out = torch.empty_like(x)
     B, C, T = x.shape
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        KERNEL.launch(x.data_ptr(), w1t.data_ptr(), b1.data_ptr(),
-                      w2t.data_ptr(), b2.data_ptr(), out.data_ptr(),
+        KERNEL.launch(x.data_ptr(), w1k.data_ptr(), b1.data_ptr(),
+                      w2k.data_ptr(), b2.data_ptr(), out.data_ptr(),
                       B, C, T, w1.shape[-1], dilation, pad_left, stream)
     return out
+
+
+def launch_info(B: int, C: int, T: int, k: int, dilation: int) -> dict:
+    """What one launch at this shape uses on the current card: CTAs,
+    cluster size, threads per CTA, dynamic shared memory, registers per
+    thread and the GEMM-1 chunk of input channels."""
+    info = (ctypes.c_int * 6)()
+    KERNEL.query("residual_unit_launch_info", B, C, T, k, dilation, info)
+    return dict(zip(("ctas", "cluster", "threads", "smem_bytes",
+                     "registers", "chunk"), info))
 
 
 class _ResidualUnit(torch.autograd.Function):

@@ -114,3 +114,50 @@ def test_cuda_wrapper_checks_before_launching(bad):
         xt = xt.double()
     with pytest.raises((ValueError, TypeError)):
         ci1_conv.conv1d_ci1_cuda(xt, wt, pad)
+
+
+def _dx_like_the_kernel(g, w, pad_right, misalign0):
+    """Kernel B3's data gradient in numpy, staged as the kernel stages:
+    tiles of 1024 steps, each channel row copied in 16-byte pieces from
+    the aligned element before the window start (``misalign0`` is the
+    misalignment, in floats, of g's first element), zeros outside
+    [0, T), and read ``shift`` floats into the staged row."""
+    B, co, T = g.shape
+    k = w.shape[-1]
+    flat = g.reshape(-1)
+    taps = w[:, 0, ::-1]                      # taps[c, o] = w[c, k-1-o]
+    dx = np.zeros((B, T), np.float64)
+    tile = 1024
+    for b in range(B):
+        for t0 in range(0, T, tile):
+            ts = t0 - pad_right
+            n_out = min(tile, T - t0)
+            for c in range(co):
+                base = (b * co + c) * T
+                shift = (misalign0 + base + ts) % 4
+                e0 = base + ts - shift
+                n4 = -(-(shift + tile + k - 1) // 4)
+                row = np.zeros(4 * n4)
+                for q in range(n4):
+                    for i in range(4):
+                        te = e0 + 4 * q + i - base
+                        if 0 <= te < T:
+                            row[4 * q + i] = flat[e0 + 4 * q + i]
+                for u in range(n_out):
+                    dx[b, t0 + u] += row[shift + u:shift + u + k] @ taps[c]
+    return dx[:, None, :]
+
+
+@pytest.mark.parametrize("T,pad,co,misalign0", [
+    (1001, (3, 4), 3, 0), (2050, (7, 7), 2, 1), (5, (0, 15), 1, 3)])
+def test_dx_staging_matches_plain_dx(T, pad, co, misalign0):
+    """The index arithmetic of B3's 16-byte staging (odd T, windows that
+    start off a 16-byte boundary, pieces that straddle the ends)."""
+    k = sum(pad) + 1
+    _, w, g = _inputs(2, T, k, co, 5)
+    _, wt, gt = _port(np.zeros((2, T, 1), np.float32), w, g)
+    want = ci1_conv.conv1d_ci1_dx_reference(gt, wt, pad).numpy()
+    got = _dx_like_the_kernel(gt.numpy().astype(np.float64),
+                              wt.numpy().astype(np.float64), pad[1],
+                              misalign0)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)

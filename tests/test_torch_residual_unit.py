@@ -104,6 +104,60 @@ def test_function_backward_matches_jax_grad(monkeypatch):
     assert b1.grad is not None and w2.grad is not None and b2.grad is not None
 
 
+def _contract_like_the_kernel(x, w1k, b1, w2k, b2, dilation, pad_left):
+    """The unit computed in float64 from the operands as kernel B1 reads
+    them, tile by tile as its grid does: CTAs of 64 output channels x 64
+    time steps, each reading lrelu(x) over [t0 - pad_left, t0 + 64 +
+    (k - 1) * d - pad_left), zero outside [0, T), tap j at column offset
+    j * d, then W2's rows over the hidden channels of all the cluster's
+    CTAs."""
+    x, w1k, b1, w2k, b2 = (a.double().numpy() for a in (x, w1k, b1, w2k, b2))
+    B, C, T = x.shape
+    k = w1k.shape[0]
+    tile, group = 64, 64
+    out = np.empty_like(x)
+    lx = np.where(x >= 0, x, 0.2 * x)
+    for b in range(B):
+        for t0 in range(0, T, tile):
+            win = tile + (k - 1) * dilation
+            t = t0 - pad_left + np.arange(win)
+            inside = (t >= 0) & (t < T)
+            window = np.zeros((C, win))
+            window[:, inside] = lx[b][:, t[inside]]
+            hidden = np.empty((C, tile))
+            for g in range(0, C, group):          # the cluster's CTAs
+                acc = sum(w1k[j, g:g + group] @ window[:, j * dilation:
+                                                        j * dilation + tile]
+                          for j in range(k)) + b1[g:g + group, None]
+                hidden[g:g + group] = np.where(acc >= 0, acc, 0.2 * acc)
+            n = min(tile, T - t0)
+            for g in range(0, C, group):
+                y = w2k[g:g + group] @ hidden + b2[g:g + group, None]
+                out[b, g:g + group, t0:t0 + n] = (x[b, g:g + group, t0:t0 + n]
+                                                  + y[:, :n])
+    return out
+
+
+@pytest.mark.parametrize("dilation", [1, 9])
+def test_prepared_operands_contract_to_the_unit(dilation):
+    """The K-major operands the wrapper hands kernel B1 (w1 as (k, C_out,
+    C_in), w2 as (out, in)), contracted as the kernel's grid does, give
+    the plain composition; the transposed layout of w1 does not."""
+    x, w1, b1, w2, b2 = _to_port(*_inputs(C=128, T=200, B=2,
+                                          seed=20 + dilation))
+    pl, pr = _pads(dilation)
+    w1k, w2k = ru.prepare_weights(w1, w2)
+    assert w1k.shape == (3, 128, 128) and w1k.is_contiguous()
+    assert w2k.shape == (128, 128) and w2k.is_contiguous()
+    want = ru.residual_unit_reference(x, w1, b1, w2, b2, dilation, pl,
+                                      pr).numpy()
+    got = _contract_like_the_kernel(x, w1k, b1, w2k, b2, dilation, pl)
+    np.testing.assert_allclose(got, want, **VAL)
+    swapped = _contract_like_the_kernel(x, w1k.transpose(1, 2), b1, w2k, b2,
+                                        dilation, pl)
+    assert np.abs(swapped - want).max() > 100 * VAL["atol"]
+
+
 @pytest.mark.parametrize("bad", ["channels", "dtype", "padding", "shape"])
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(bad):
     C = 64 if bad == "channels" else 128
