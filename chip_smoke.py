@@ -43,6 +43,22 @@ the last line:
    input (1 x 65536) equals the CPU's losses and per-group gradient norms
    (rtol 1e-3).  CUDA-event median D and G step times, audio seconds
    trained per second, peak memory and a profile of one G step.
+7. train_v2: the full-width upstream ``v2`` preset with
+   ``fused_kernels=true`` (random weights from seed 0, batch 8 x 131072),
+   its step counter at ``phase_1_duration - 2``: G, G in phase 1, then D,
+   G, G, G.  On every step: the JAX package's metric names, every value
+   finite, the KL term positive on G steps, the GAN terms zero in phase 1
+   and non-zero after, D parameters moving only on D steps and ENC/DEC
+   only on G steps, kernel B1 launched exactly 16 times (a D step
+   recomputes the generator's forward) and B2/B3 never.  Then three
+   timed D, G, G, G cycles of the fused state and of a
+   ``fused_kernels=false`` copy with the same weights and optimizer
+   state, in turns: median D and G step times, audio seconds trained per
+   second and peak memory of each.  One G step on a short input
+   (1 x 65536, ``log_epsilon=1e-3``) with the same latent noise equals
+   the CPU's losses and ENC/DEC gradient norms (rtol 1e-3); the eval
+   step's ``validation`` is finite; a profile of one fused G step gives
+   B1's share.
 
 Before the last line it prints the ``nvidia-smi`` line and one JSON
 object ``{"kernels": [...]}``; the last line is
@@ -60,6 +76,7 @@ import time
 
 SEED = 0
 BATCH, SAMPLES, CHUNK = 4, 131072, 2048
+TRAIN_BATCH = 8
 PEAK_F32_FLOPS = 67e12   # H100 SXM, float32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12  # H100 SXM, dense TF32 on the tensor cores
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
@@ -75,6 +92,13 @@ TRAIN_METRICS = sorted([
     "loss_adversarial", "loss_audio", "loss_ce", "loss_dis",
     "loss_feature_matching", "loss_gen_total", "loss_regularization",
     "beta", "warmed_up"])
+# the JAX package's _metric_names for v2 (tests/test_torch_train.py holds
+# the port's equal to them), plus the schedule values
+TRAIN_V2_METRICS = sorted([
+    "loss_adversarial", "loss_ce", "loss_dis", "loss_feature_matching",
+    "loss_fullband_spectral_distance", "loss_gen_total",
+    "loss_multiband_spectral_distance", "loss_regularization", "beta",
+    "warmed_up"])
 OFFLINE_TOL = 2e-4       # max |fused - plain| on tanh-bounded audio
 CPU_TOL = 2e-4           # max |card - cpu| on tanh-bounded audio
 
@@ -131,7 +155,9 @@ def pads(k, d):
 
 
 def phase_kernels(torch, ru, launches_per_shape):
-    """Kernel B1 vs its plain twin, then timings at the main path's shapes."""
+    """Kernel B1 vs its plain twin, then timings at the shapes each path
+    gives it: ``launches_per_shape`` maps ``(path, B, T, C, d)`` to the
+    launches per call of that path (a forward, a train step)."""
     max_err = 0.0
     n = 0
     grid = [(3, C, d, T, B) for C in (128, 256, 512) for d in (1, 3, 9)
@@ -178,7 +204,7 @@ def phase_kernels(torch, ru, launches_per_shape):
           "tolerance": KERNEL_TOL})
 
     shapes = []
-    for (B, T, C, d), count in launches_per_shape.items():
+    for (path, B, T, C, d), count in launches_per_shape.items():
         args = unit_inputs(torch, B, C, T, seed=C + d)
         pl, pr = pads(3, d)
         kernel = lambda: ru.residual_unit_cuda(*args, d, pl, pr)  # noqa: E731
@@ -208,7 +234,8 @@ def phase_kernels(torch, ru, launches_per_shape):
         t_ops = 3 * flops / PEAK_TF32_FLOPS * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
         shapes.append({
-            "shape": [B, T, C], "dilation": d, "launches_per_forward": count,
+            "shape": [B, T, C], "dilation": d, "path": path,
+            "launches_per_call": count,
             "max_abs_err": err, "launch": info,
             "ms": min(ms, ms2), "plain_ms": min(plain_ms, plain_ms2),
             "device_ms": dev_ms, "plain_device_ms": plain_dev_ms,
@@ -500,6 +527,185 @@ def phase_train(torch, np, KERNELS):
     return cycle[1]["launches"]
 
 
+def phase_train_v2(torch, np, KERNELS):
+    """The full-width upstream v2 train step with kernel B1 (see the
+    module docstring, phase 7).  Returns B1's launches per step."""
+    import copy
+    from rave_tpu_torch.config import build_config
+    from rave_tpu_torch.train import loop, schedules
+
+    counts = lambda: {k.name: k.launches for k in KERNELS}  # noqa: E731
+
+    def reset():
+        for k in KERNELS:
+            k.launches = 0
+
+    def kind_of(st):
+        return "D" if schedules.is_discriminator_step(st.step, st.cfg) else "G"
+
+    cfg = build_config(["v2"], ["fused_kernels=true"])
+    torch.manual_seed(SEED)
+    state = loop.TrainState(cfg, device="cuda",
+                            step=cfg.phase_1_duration - 2, seed=SEED)
+    step_fn = loop.make_train_step(cfg)
+    batch = {"x": train_batch(torch, np, TRAIN_BATCH, cfg.n_signal, 1)["x"]}
+    groups = {"dis": list(state.disc.parameters()),
+              "enc": state.enc_params, "dec": state.dec_params}
+    expect = {"residual_unit": 16, "ci1_conv_forward": 0, "ci1_conv_dx": 0}
+
+    # warm-up: G, G in phase 1, then D, G, G, G
+    warmup = []
+    for _ in range(6):
+        kind, warm = kind_of(state), schedules.warmed_up(state.step, cfg)
+        before = {g: [p.detach().clone() for p in ps]
+                  for g, ps in groups.items()}
+        reset()
+        metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        launches = counts()
+        check(launches == expect, f"v2 {kind} step launches {launches}")
+        values = {k: float(v) for k, v in metrics.items()}
+        check(sorted(values) == TRAIN_V2_METRICS,
+              f"v2 metric names {sorted(values)}")
+        check(all(np.isfinite(v) for v in values.values()),
+              f"v2 {kind} step metrics not finite: {values}")
+        if kind == "G":
+            # the hinge generator term -mean(score) takes either sign
+            check(values["loss_regularization"] > 0
+                  and (values["loss_adversarial"] != 0) == warm
+                  and (values["loss_feature_matching"] > 0) == warm,
+                  f"v2 G step (warmed up: {warm}) terms {values}")
+        moved = {g: any(not torch.equal(p, q) for p, q in zip(ps, before[g]))
+                 for g, ps in groups.items()}
+        want = {"dis": kind == "D", "enc": kind == "G", "dec": kind == "G"}
+        check(moved == want, f"v2 {kind} step moved {moved}, expected {want}")
+        warmup.append({"kind": kind, "warmed_up": warm, "launches": launches,
+                       "metrics": values})
+    check([(c["kind"], c["warmed_up"]) for c in warmup]
+          == [("G", False), ("G", False), ("D", True), ("G", True),
+              ("G", True), ("G", True)], f"v2 warm-up {warmup}")
+    del before
+
+    # a copy on the plain path with the same weights and optimizer state
+    plain = loop.TrainState(build_config(["v2"], ["fused_kernels=false"]),
+                            device="cuda", step=state.step, seed=SEED)
+    plain.model.load_state_dict(state.model.state_dict())
+    plain.disc.load_state_dict(state.disc.state_dict())
+    for name in ("enc_opt", "dec_opt", "dis_opt"):
+        getattr(plain, name).load_state_dict(
+            copy.deepcopy(getattr(state, name).state_dict()))
+    plain_fn = loop.make_train_step(plain.cfg)
+
+    # timed: D, G, G, G cycles, fused and plain in turns
+    runs = {"fused": (state, step_fn, 16), "plain": (plain, plain_fn, 0)}
+    times = {r: {"D": [], "G": []} for r in runs}
+    peak = {r: 0.0 for r in runs}
+    for _ in range(3):
+        for name, (st, fn, b1) in runs.items():
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(4):
+                kind = kind_of(st)
+                reset()
+                times[name][kind].append(cuda_ms(
+                    torch, lambda: fn(st, batch), iters=1, warmup=0))
+                check(counts()["residual_unit"] == b1,
+                      f"v2 {name} {kind} step: B1 launches {counts()}")
+            peak[name] = max(peak[name],
+                             torch.cuda.max_memory_allocated() / 2 ** 20)
+    audio_s = TRAIN_BATCH * cfg.n_signal / cfg.sampling_rate
+    timing = {}
+    for name in runs:
+        d_ms = statistics.median(times[name]["D"])
+        g_ms = statistics.median(times[name]["G"])
+        timing[name] = {"d_step_ms": d_ms, "g_step_ms": g_ms,
+                        "d_step_ms_all": times[name]["D"],
+                        "g_step_ms_all": times[name]["G"],
+                        "audio_s_per_s": 4 * audio_s / ((d_ms + 3 * g_ms) / 1e3),
+                        "peak_mem_mb": peak[name]}
+    del plain, plain_fn, runs
+    torch.cuda.empty_cache()
+
+    # one G step on the card vs the CPU, on a short input, same noise.
+    # log_epsilon 1e-3 (v2: 1e-7): at random init a few STFT bins of the
+    # fake audio are near zero, and log(|S| + 1e-7) divides their float32
+    # rounding by 1e-7, so the gradient of the very same step depends on
+    # the rounding (on the CPU alone its float32 and float64 gradients
+    # differ by more than this check's bound); 1e-3 bounds that gain
+    # and leaves every code path of the step as it is
+    short = build_config(["v2"], ["fused_kernels=true", "n_signal=65536",
+                                  "batch_size=1", "log_epsilon=1e-3"])
+    g_step = short.phase_1_duration + 1
+    torch.manual_seed(SEED + 1)
+    card = loop.TrainState(short, device="cuda", step=g_step)
+    cpu = loop.TrainState(short, device="cpu", step=g_step)
+    cpu.model.load_state_dict({k: v.cpu() for k, v in
+                               card.model.state_dict().items()})
+    cpu.disc.load_state_dict({k: v.cpu() for k, v in
+                              card.disc.state_dict().items()})
+    eps = torch.tensor(np.random.default_rng(SEED).standard_normal(
+        (1, short.latent_size, short.n_signal // short.total_ratio())),
+        dtype=torch.float32)
+    sb = {"x": batch["x"][:1, :short.n_signal]}
+    short_fn = loop.make_train_step(short)
+    reset()
+    m_card = {k: float(v) for k, v in short_fn(card, sb, eps.cuda()).items()}
+    short_launches = counts()
+    # one CPU thread: PyTorch's threaded oneDNN conv1d data gradient is
+    # wrong at some strided shapes of the MSD (tests/test_torch_train_v2.py)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        m_cpu = {k: float(v) for k, v in short_fn(
+            cpu, {"x": sb["x"].cpu()}, eps).items()}
+    finally:
+        torch.set_num_threads(threads)
+
+    def norms(st):
+        return {g: float(torch.sqrt(sum((p.grad.double() ** 2).sum()
+                                        for p in ps)))
+                for g, ps in (("enc", st.enc_params), ("dec", st.dec_params))}
+
+    n_card, n_cpu = norms(card), norms(cpu)
+    rel = {k: abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12)
+           for k in m_cpu}
+    rel.update({f"grad_norm_{g}": abs(n_card[g] - n_cpu[g]) / n_cpu[g]
+                for g in n_cpu})
+    check(max(rel.values()) <= TRAIN_RTOL, f"v2 card vs cpu G step: {rel}")
+    check(short_launches == expect, f"v2 short G step launches {short_launches}")
+    del card, cpu
+
+    # the eval step on the card
+    reset()
+    ev_metrics, y, z_mean = loop.make_eval_step(cfg)(state, batch)
+    torch.cuda.synchronize()
+    ev = {"validation": float(ev_metrics["validation"]), "y": list(y.shape),
+          "z_mean": list(z_mean.shape), "launches": counts()}
+    T_z = cfg.n_signal // cfg.total_ratio()
+    check(np.isfinite(ev["validation"]) and ev["y"] == list(batch["x"].shape)
+          and ev["z_mean"] == [TRAIN_BATCH, T_z, cfg.latent_size]
+          and ev["launches"]["residual_unit"] == 16, f"v2 eval step {ev}")
+
+    # where the time of one fused G step goes
+    def one_g_step():
+        state.step = cfg.phase_1_duration + 4 * 10 + 1
+        step_fn(state, batch)
+
+    prof = device_profile(torch, one_g_step, names=("residual_unit_kernel",))
+    prof["share"] = {n: ms / prof["device_ms"]
+                     for n, ms in prof["named_ms"].items()}
+    emit({"phase": "train_v2", "config": "v2",
+          "params": {g: sum(p.numel() for p in ps)
+                     for g, ps in groups.items()},
+          "batch": [TRAIN_BATCH, cfg.n_signal, 1],
+          "start_step": cfg.phase_1_duration - 2, "warmup": warmup,
+          **timing, "audio_s_per_step": audio_s,
+          "card_vs_cpu": {"rel_err": rel, "card": m_card,
+                          "grad_norms_card": n_card, "grad_norms_cpu": n_cpu,
+                          "launches": short_launches},
+          "eval": ev, "g_step_profile": prof})
+    return warmup[-1]["launches"]["residual_unit"]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -538,15 +744,17 @@ def main() -> int:
     emit({"phase": "build", "seconds": seconds,
           "kernels": [k.name for k in KERNELS], "ptxas": ptxas})
 
-    # shapes the main path gives B1: 4 x 131072 samples = 8192 band frames
-    # per request; C=128 at T=2048, 256 at 512, 512 at 256; each (C, d)
-    # once in the encoder and once in the generator
+    # shapes the paths give B1: 131072 samples = 8192 band frames per
+    # item; C=128 at T=2048, 256 at 512, 512 at 256; each (C, d) once in
+    # the encoder and once in the generator, per offline forward (batch
+    # 4) and per v2 train step, D or G (batch 8)
     T0 = SAMPLES // 16
     per_shape = {}
-    for C, T, dils in ((128, T0 // 4, (1, 3, 9)), (256, T0 // 16, (1, 3, 9)),
-                       (512, T0 // 32, (1, 3))):
-        for d in dils:
-            per_shape[(BATCH, T, C, d)] = 2
+    for path, B in (("offline_v2", BATCH), ("train_v2", TRAIN_BATCH)):
+        for C, T, dils in ((128, T0 // 4, (1, 3, 9)),
+                           (256, T0 // 16, (1, 3, 9)), (512, T0 // 32, (1, 3))):
+            for d in dils:
+                per_shape[(path, B, T, C, d)] = 2
 
     # 2. kernels vs plain versions on the card
     max_err, shapes = phase_kernels(torch, ru, per_shape)
@@ -660,9 +868,14 @@ def main() -> int:
     # 6. the v2_fork train step
     g_launches = phase_train(torch, np, KERNELS)
 
-    # 7. summary
-    total = lambda key: sum(s[key] * s["launches_per_forward"]  # noqa: E731
-                            for s in shapes)
+    # 7. the upstream v2 train step, kernel B1 inside it
+    v2_launches = phase_train_v2(torch, np, KERNELS)
+
+    # 8. summary
+    def total(key, path="offline_v2"):
+        return sum(s[key] * s["launches_per_call"] for s in shapes
+                   if s["path"] == path)
+
     src = "rave_tpu_torch/csrc/residual_unit.cu"
     kernels = [{
         "name": "residual_unit", "route": "cuda", "source": src, "src": src,
@@ -674,7 +887,11 @@ def main() -> int:
         "bound_ms": total("bound_ms"),
         "bound_by": ("operations" if total("ops_ms") >= total("bytes_ms")
                      else "bytes"),
-        "bound_ms_f32": total("bound_ms_f32"), "library_ms": None}]
+        "bound_ms_f32": total("bound_ms_f32"), "library_ms": None,
+        "launches_v2_train_step": v2_launches,
+        "train_v2": {k: total(k, "train_v2") for k in (
+            "ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms",
+            "bound_ms_f32")}}]
     # B2/B3: one launch per head and G step; the plain twin is one
     # PyTorch call (F.conv1d, conv1d_input), so it is the library time
     for name, key, line, launches in (

@@ -1,14 +1,19 @@
-"""Discriminators of the ``v2_fork`` preset: UnivNet MRD + MPD and the
-MelGAN stack.
+"""Discriminators of the ``v2`` and ``v2_fork`` presets.
 
-Port of the subset of ``rave_tpu/models/discriminators.py`` that the
-fork's ``combine(univnet, melgan_stack)`` runs.  Layouts are the port's
-channels-first ones: audio ``(B, 1, T)``, 1-D features ``(B, C, T)``,
-2-D features ``(B, C, H, W)`` with H the leading axis of the JAX
-package's ``(B, H, W, C)`` (time for the MRD and the MPD), so a kernel
-converts by a plain transpose.  Every module returns
-``list[list[Tensor]]``: one feature list per sub-discriminator, score
-last.
+Port of ``rave_tpu/models/discriminators.py`` but for the Descript
+discriminator (ROADMAP A5): the ConvNet ladders, the multi-scale,
+multi-period and (1-D and 2-D) multi-scale spectral discriminators of
+v2's ``combine(periods, scales, spectral)``, and the fork's UnivNet MRD
++ MPD and MelGAN stack.  Layouts are the port's channels-first ones:
+audio ``(B, 1, T)``, 1-D features ``(B, C, T)``, 2-D features
+``(B, C, H, W)`` with H the leading axis of the JAX package's
+``(B, H, W, C)`` (time for the MRD and the MPDs, frequency for the
+spectral discriminator), so a kernel converts by a plain transpose.
+Every multi-discriminator returns ``list[list[Tensor]]``: one feature
+list per sub-discriminator, score last.  Submodules carry the flax
+names (``mpd/period{i}``, ``msd/disc{i}``, ``msspec/spec{i}``, ...), and
+each conv list is a ``convs`` ModuleList whose ``i``-th entry is flax's
+``WNConv_{i}``.
 
 The JAX package's TPU formulation tricks (the packed-resident spectral
 chain, grouped-conv supergrouping, the phase-decomposed dx of strided
@@ -101,6 +106,182 @@ def _avg_pool_1d(x: torch.Tensor, window: int = 2) -> torch.Tensor:
     return x[:, :, :T].reshape(B, C, T // window, window).mean(-1)
 
 
+def _convnet(convs: nn.ModuleList, x: torch.Tensor,
+             after_activation: bool = False) -> list[torch.Tensor]:
+    """Each conv but the last and a leaky ReLU, each giving a feature
+    taken before the activation (or after it); the last conv's output
+    is the score."""
+    feats = []
+    for conv in convs[:-1]:
+        x = conv(x)
+        if after_activation:
+            x = _lrelu(x)
+        feats.append(x)
+        if not after_activation:
+            x = _lrelu(x)
+    feats.append(convs[-1](x))
+    return feats
+
+
+class ConvNet1d(nn.Module):
+    """``n_layers`` strided convs of ``capacity * 2^i`` channels (pad
+    ``(k - stride + 1) // 2`` each side) and a 1x1 score conv."""
+
+    def __init__(self, in_size: int = 1, capacity: int = 64,
+                 n_layers: int = 4, kernel_size: int = 15, stride: int = 4):
+        super().__init__()
+        pad = (kernel_size - stride + 1) // 2 if kernel_size > 1 else 0
+        convs, ci = [], in_size
+        for i in range(n_layers):
+            convs.append(WNConv(ci, capacity * 2 ** i, (kernel_size,),
+                                (stride,), [(pad, pad)]))
+            ci = capacity * 2 ** i
+        convs.append(WNConv(ci, 1, (1,)))
+        self.convs = nn.ModuleList(convs)
+
+    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+        return _convnet(self.convs, x)
+
+
+class ConvNet2d(nn.Module):
+    """The 2-D ladder of the period discriminators: four convs of kernel
+    ``(5, 1)``, stride ``(4, 1)`` and ``64 * 2^i`` channels over one
+    input channel, a 1x1 score conv."""
+
+    def __init__(self):
+        super().__init__()
+        convs, ci = [], 1
+        for i in range(4):
+            convs.append(WNConv(ci, 64 * 2 ** i, (5, 1), (4, 1),
+                                [(1, 1), (0, 0)]))
+            ci = 64 * 2 ** i
+        convs.append(WNConv(ci, 1, (1, 1)))
+        self.convs = nn.ModuleList(convs)
+
+    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+        return _convnet(self.convs, x)
+
+
+class MultiScaleDiscriminator(nn.Module):
+    """Three ConvNet1d (``disc0..2``, kernel 15, stride 4) over an
+    average-pool pyramid."""
+
+    def __init__(self, capacity: int = 64, n_layers: int = 4):
+        super().__init__()
+        self.subs = [f"disc{i}" for i in range(3)]
+        for name in self.subs:
+            self.add_module(name, ConvNet1d(1, capacity, n_layers, 15, 4))
+
+    def forward(self, x: torch.Tensor) -> list[list[torch.Tensor]]:
+        out = []
+        for name in self.subs:
+            out.append(getattr(self, name)(x))
+            x = _avg_pool_1d(x, 2)
+        return out
+
+
+class MultiPeriodDiscriminator(nn.Module):
+    """One ConvNet2d per period 2, 3, 5, 7, 11 (``period0..4``): time
+    folded into ``(T/p, p)`` after zero padding on the right (unlike the
+    UnivNet MPD, which reflects)."""
+
+    PERIODS = (2, 3, 5, 7, 11)
+
+    def __init__(self):
+        super().__init__()
+        for i in range(len(self.PERIODS)):
+            self.add_module(f"period{i}", ConvNet2d())
+
+    def forward(self, x: torch.Tensor) -> list[list[torch.Tensor]]:
+        B, C, T = x.shape
+        out = []
+        for i, p in enumerate(self.PERIODS):
+            z = F.pad(x, (0, (p - T % p) % p))
+            out.append(getattr(self, f"period{i}")(
+                z.reshape(B, C, z.shape[2] // p, p)))
+        return out
+
+
+class EncodecConvNet(nn.Module):
+    """2-D conv stack over a complex STFT ``(B, 2, F, frames)``: per
+    ``(kh, kw, stride_f, dil_t)`` of ``SPECS`` a conv of 32 channels
+    (stride on frequency, dilation on time) and a leaky ReLU, each
+    feature taken after it; a 3x3 score conv.  This is the native
+    formulation; the JAX package's default packs frequency rows into
+    channels (a TPU layout), with the same parameters and values."""
+
+    SPECS = ((9, 3, 1, 1), (9, 3, 2, 1), (9, 3, 2, 2), (9, 3, 2, 4),
+             (3, 3, 1, 1))
+
+    def __init__(self):
+        super().__init__()
+        convs, ci = [], 2
+        for kh, kw, sh, dw in self.SPECS:
+            ph, pw = (kh - 1) // 2, (kw - 1) * dw // 2
+            convs.append(WNConv(ci, 32, (kh, kw), (sh, 1),
+                                [(ph, ph), (pw, pw)], dilation=(1, dw)))
+            ci = 32
+        convs.append(WNConv(ci, 1, (3, 3), padding=[(1, 1), (1, 1)]))
+        self.convs = nn.ModuleList(convs)
+
+    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+        return _convnet(self.convs, x, after_activation=True)
+
+
+def _uncentred_stft(x: torch.Tensor, scale: int, what: str) -> torch.Tensor:
+    """Normalised STFT ``(B, frames, bins)`` of ``x`` ``(B, 1, T)`` with
+    no centring pad; a signal shorter than the window raises (it would
+    give no frame, and an empty mean trains on NaN)."""
+    sig = x[:, 0]
+    if sig.shape[1] < scale:
+        raise ValueError(
+            f"{what} discriminator scale {scale} needs at least {scale} "
+            f"samples, got {sig.shape[1]} (reduce "
+            "discriminator.spectral_scales or raise n_signal)")
+    return stft(sig, scale, scale // 4, center=False, normalized=True)
+
+
+class MultiScaleSpectralDiscriminator(nn.Module):
+    """One EncodecConvNet per STFT scale (``spec0..``), real and
+    imaginary parts as two channels over ``(bins, frames)``."""
+
+    def __init__(self, scales: Sequence[int] = (4096, 2048, 1024, 512, 256)):
+        super().__init__()
+        self.scales = tuple(scales)
+        for i in range(len(self.scales)):
+            self.add_module(f"spec{i}", EncodecConvNet())
+
+    def forward(self, x: torch.Tensor) -> list[list[torch.Tensor]]:
+        out = []
+        for i, scale in enumerate(self.scales):
+            s = _uncentred_stft(x, scale, "spectral")
+            z = torch.stack([s.real, s.imag], 1).transpose(2, 3)
+            out.append(getattr(self, f"spec{i}")(z))
+        return out
+
+
+class MultiScaleSpectralDiscriminator1d(nn.Module):
+    """One ConvNet1d (kernel 5, stride 2) per STFT scale (``spec1d0..``)
+    over frames, with the ``scale + 2`` real and imaginary bins as
+    channels."""
+
+    def __init__(self, scales: Sequence[int] = (4096, 2048, 1024, 512, 256),
+                 capacity: int = 64):
+        super().__init__()
+        self.scales = tuple(scales)
+        for i, scale in enumerate(self.scales):
+            self.add_module(f"spec1d{i}", ConvNet1d(
+                scale + 2, capacity, kernel_size=5, stride=2))
+
+    def forward(self, x: torch.Tensor) -> list[list[torch.Tensor]]:
+        out = []
+        for i, scale in enumerate(self.scales):
+            s = _uncentred_stft(x, scale, "spectral_1d")
+            z = torch.cat([s.real, s.imag], -1).transpose(1, 2)
+            out.append(getattr(self, f"spec1d{i}")(z))
+        return out
+
+
 class UnivNetPeriodDiscriminator(nn.Module):
     """Period discriminator: time folded into ``(T/p, p)``, reflect-padded
     on the right when ``p`` does not divide ``T``."""
@@ -122,12 +303,7 @@ class UnivNetPeriodDiscriminator(nn.Module):
             x = F.pad(x, (0, p - T % p), mode="reflect")
             T = x.shape[2]
         z = x.reshape(B, C, T // p, p)
-        feats = []
-        for conv in self.convs[:-1]:
-            z = _lrelu(conv(z))
-            feats.append(z)
-        feats.append(self.convs[-1](z))
-        return feats
+        return _convnet(self.convs, z, after_activation=True)
 
 
 class UnivNetResolutionDiscriminator(nn.Module):
@@ -158,12 +334,7 @@ class UnivNetResolutionDiscriminator(nn.Module):
         sig = F.pad(x, (pad, pad), mode="reflect")[:, 0]
         s = stft(sig, self.n_fft, self.hop, win_length=self.win, center=False)
         z = s.abs()[:, None]             # (B, 1, frames, bins)
-        feats = []
-        for conv in self.convs[:-1]:
-            z = _lrelu(conv(z))
-            feats.append(z)
-        feats.append(self.convs[-1](z))
-        return feats
+        return _convnet(self.convs, z, after_activation=True)
 
 
 class UnivNetDiscriminator(nn.Module):
@@ -207,13 +378,7 @@ class MelGANDiscriminator(nn.Module):
         self.convs = nn.ModuleList(convs)
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
-        feats = []
-        for conv in self.convs[:-1]:
-            x = conv(x)
-            feats.append(x)
-            x = _lrelu(x)
-        feats.append(self.convs[-1](x))
-        return feats
+        return _convnet(self.convs, x)
 
 
 class StackDiscriminators(nn.Module):
@@ -236,34 +401,50 @@ class StackDiscriminators(nn.Module):
         return out
 
 
-# members of the JAX package's combine that later slices port
-_LATER_MEMBERS = {"periods": "A2", "scales": "A2", "spectral": "A2",
-                  "spectral_1d": "A2", "descript": "A5"}
+def _descript_raises():
+    raise NotImplementedError(
+        "the Descript discriminator is not ported to rave_tpu_torch yet "
+        "(ROADMAP A5)")
 
 
 class CombineDiscriminators(nn.Module):
     """Concatenated sub-discriminator outputs of the members, in order.
-    Members ``univnet`` and ``melgan_stack`` are ported."""
+    As in the JAX package, the ``periods`` member keeps its own capacity
+    (64), ``scales`` and ``spectral_1d`` take ``capacity`` and
+    ``spectral`` its own 32; the spectral members run over
+    ``spectral_scales``."""
 
-    def __init__(self, members: Sequence[str]):
+    def __init__(self, members: Sequence[str], capacity: int = 64,
+                 spectral_scales: Sequence[int] = (4096, 2048, 1024, 512,
+                                                   256)):
         super().__init__()
         self.members = tuple(members)
+        # member -> (flax name, constructor)
+        build = {
+            "periods": ("mpd", MultiPeriodDiscriminator),
+            "scales": ("msd", lambda: MultiScaleDiscriminator(
+                capacity=capacity)),
+            "spectral": ("msspec", lambda: MultiScaleSpectralDiscriminator(
+                spectral_scales)),
+            "spectral_1d": ("msspec1d",
+                            lambda: MultiScaleSpectralDiscriminator1d(
+                                spectral_scales, capacity)),
+            "univnet": ("univnet", UnivNetDiscriminator),
+            "melgan_stack": ("stack", StackDiscriminators),
+            "descript": ("descript", _descript_raises),
+        }
+        self.names = []
         for m in self.members:
-            if m == "univnet":
-                self.univnet = UnivNetDiscriminator()
-            elif m == "melgan_stack":
-                self.stack = StackDiscriminators()
-            elif m in _LATER_MEMBERS:
-                raise NotImplementedError(
-                    f"discriminator member {m!r} is not ported to "
-                    f"rave_tpu_torch yet (ROADMAP {_LATER_MEMBERS[m]})")
-            else:
+            if m not in build:
                 raise ValueError(f"unknown discriminator member {m!r}")
+            name, make = build[m]
+            self.add_module(name, make())
+            self.names.append(name)
 
     def forward(self, x: torch.Tensor) -> list[list[torch.Tensor]]:
         out = []
-        for m in self.members:
-            out.extend(self.univnet(x) if m == "univnet" else self.stack(x))
+        for name in self.names:
+            out.extend(getattr(self, name)(x))
         return out
 
 
@@ -284,10 +465,22 @@ def member_sub_count(member: str, disc_cfg=None) -> int:
 
 
 def build_discriminator(cfg: RAVEConfig, device="cuda") -> nn.Module:
-    """The configured discriminator, on ``device``."""
+    """The configured discriminator, on ``device``: the JAX package's
+    dispatch (``combine`` and ``multi_scale`` read the config, the other
+    kinds take their defaults)."""
     d = cfg.discriminator
-    if d.kind != "combine":
-        raise NotImplementedError(
-            f"discriminator kind {d.kind!r} is not ported to rave_tpu_torch "
-            f"yet (ROADMAP {'A5' if d.kind == 'descript' else 'A2'})")
-    return CombineDiscriminators(tuple(d.members)).to(resolve_device(device))
+    kinds = {
+        "combine": lambda: CombineDiscriminators(
+            tuple(d.members), d.capacity, tuple(d.spectral_scales)),
+        "multi_scale": lambda: MultiScaleDiscriminator(
+            capacity=d.capacity, n_layers=d.n_layers),
+        "multi_period": MultiPeriodDiscriminator,
+        "spectral": MultiScaleSpectralDiscriminator,
+        "spectral_1d": MultiScaleSpectralDiscriminator1d,
+        "univnet": UnivNetDiscriminator,
+        "melgan_stack": StackDiscriminators,
+        "descript": _descript_raises,
+    }
+    if d.kind not in kinds:
+        raise ValueError(f"unknown discriminator kind {d.kind!r}")
+    return kinds[d.kind]().to(resolve_device(device))

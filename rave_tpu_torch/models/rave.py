@@ -216,6 +216,14 @@ class RAVE(nn.Module):
         return torch.cat([z, emb[:, :, None].expand(-1, -1, z.shape[2])],
                          dim=1)
 
+    def reparametrize(self, z: torch.Tensor,
+                      eps: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None):
+        """Pre-regularisation latent ``(B, 2 * latent, T_z)`` -> the
+        sample ``(B, latent, T_z)`` and the KL, with the noise ``eps``
+        (shaped like the sample) or drawn from ``generator``."""
+        return self.latent(z, eps, generator)
+
     def project_units(self, z: torch.Tensor,
                       target_frames: Optional[int] = None) -> torch.Tensor:
         """Latent ``(B, C, T_z)`` -> unit logits ``(B, tf, units)``."""
@@ -225,12 +233,18 @@ class RAVE(nn.Module):
         """Audio ``(B, T, 1)`` -> latent ``(B, T_z, C)``: the variational
         mean, or the raw latent and the speaker embedding."""
         bands = self.pqmf_forward(x)
-        z = self.encode_input(bands)
+        return self.inference_latent(bands,
+                                     self.encode_input(bands)).transpose(1, 2)
+
+    def inference_latent(self, bands: torch.Tensor,
+                         z_pre: torch.Tensor) -> torch.Tensor:
+        """The decoder's latent ``(B, C, T_z)`` at inference from the
+        pre-regularisation latent of ``bands``: the variational mean, or
+        the raw latent and the speaker embedding."""
         if self.speaker_encoder is None:
-            z, _ = VariationalHead.mean_scale(z)
-        else:
-            z = self.condition(z, self.speaker_embedding(bands))
-        return z.transpose(1, 2)
+            z, _ = VariationalHead.mean_scale(z_pre)
+            return z
+        return self.condition(z_pre, self.speaker_embedding(bands))
 
     def decode_bands(self, z: torch.Tensor) -> torch.Tensor:
         """Latent ``(B, C, T_z)`` -> bands ``(B, M, T/M)``."""

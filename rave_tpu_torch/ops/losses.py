@@ -1,11 +1,11 @@
-"""Audio distances and GAN losses of the ``v2_fork`` train step.
+"""Audio distances and GAN losses of the v2 and ``v2_fork`` train steps.
 
-Port of ``mean_difference``, ``mr_stft_resolutions``,
-``multi_resolution_stft_loss`` and the GAN objectives of
-``rave_tpu/ops/losses.py``.  Means accumulate in float32.  The JAX
-package's packed spectral features (``valid_frac``) have no counterpart
-here: the port's discriminators return native feature maps.
-``audio_distance_v1`` belongs to the v2 slice (ROADMAP A2).
+Port of ``mod_sigmoid``, ``mean_difference``, ``audio_distance_v1``,
+``mr_stft_resolutions``, ``multi_resolution_stft_loss`` and the GAN
+objectives of ``rave_tpu/ops/losses.py``.  Means accumulate in float32.
+The JAX package's packed spectral features (``valid_frac``) have no
+counterpart here: the port's discriminators return native feature maps,
+whose plain means are what the packed ones correct to.
 """
 
 from __future__ import annotations
@@ -16,7 +16,12 @@ from typing import Callable, Sequence
 import torch
 import torch.nn.functional as F
 
-from .stft import stft
+from .stft import multiscale_stft, stft
+
+
+def mod_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``2 sigmoid(x)^2.3 + 1e-7``."""
+    return 2 * torch.sigmoid(x) ** 2.3 + 1e-7
 
 
 def mean_difference(target: torch.Tensor, value: torch.Tensor,
@@ -35,6 +40,20 @@ def mean_difference(target: torch.Tensor, value: torch.Tensor,
             return d / (target * target).mean(dtype=torch.float32)
         return d
     raise ValueError(f"norm must be L1 or L2, got {norm}")
+
+
+def audio_distance_v1(x: torch.Tensor, y: torch.Tensor,
+                      scales: Sequence[int] = (2048, 1024, 512, 256, 128),
+                      log_epsilon: float = 1e-7) -> torch.Tensor:
+    """Per scale, the relative L2 distance of the STFT magnitudes plus
+    the L1 distance of their ``log(. + log_epsilon)``, summed over the
+    scales.  ``x``, ``y``: ``(B, T)`` or channels-first ``(B, C, T)``."""
+    total = x.new_zeros((), dtype=torch.float32)
+    for a, b in zip(multiscale_stft(x, scales), multiscale_stft(y, scales)):
+        total = total + mean_difference(a, b, "L2", relative=True)
+        total = total + mean_difference(torch.log(a + log_epsilon),
+                                        torch.log(b + log_epsilon), "L1")
+    return total
 
 
 def mr_stft_resolutions(sample_rate: int = 44100,

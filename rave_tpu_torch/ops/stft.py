@@ -1,17 +1,19 @@
 """Short-time Fourier transform with the JAX package's conventions.
 
-Port of ``hann_window`` and ``stft`` in ``rave_tpu/ops/stft.py``.  The
-FFT itself is ``torch.stft`` (cuFFT on the card), as the JAX package
-leaves it to XLA outside any Pallas kernel.  The layout at the boundary
-stays the JAX package's: time-major ``(..., frames, n_fft // 2 + 1)``.
-The JAX package's hand-written VJP of its framing is a TPU lowering
-workaround; here autograd differentiates ``torch.stft``.
+Port of ``hann_window``, ``stft`` and ``multiscale_stft`` in
+``rave_tpu/ops/stft.py``.  The FFT itself is ``torch.stft`` (cuFFT on
+the card), as the JAX package leaves it to XLA outside any Pallas
+kernel.  The layout at the boundary stays the JAX package's: time-major
+``(..., frames, n_fft // 2 + 1)``.  The JAX package's hand-written VJP
+of its framing is a TPU lowering workaround; here autograd
+differentiates ``torch.stft``.  Mel scales (``num_mels``) belong to the
+hybrid slice (ROADMAP A7).
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -35,14 +37,39 @@ def _window(n_fft: int, win_length: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(win).to(device)
 
 
+def _reflect_index(T: int, pad: int) -> np.ndarray:
+    """Source index of each sample of a signal of ``T`` samples padded
+    by ``pad`` on both sides in numpy's (and ``jnp.pad``'s) ``reflect``
+    mode, which reflects again and again where ``pad >= T``: a
+    triangle wave of period ``2 (T - 1)``."""
+    i = np.arange(-pad, T + pad)
+    if T == 1:
+        return np.zeros_like(i)
+    period = 2 * (T - 1)
+    i = i % period
+    return np.where(i < T, i, period - i)
+
+
+def _pad_reflect(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """``(N, T)`` padded by ``pad`` on both sides in numpy's reflect
+    mode; ``F.pad`` where it agrees (it raises where ``pad >= T``)."""
+    T = x.shape[-1]
+    if pad < T:
+        return F.pad(x[:, None], (pad, pad), mode="reflect")[:, 0]
+    idx = torch.from_numpy(_reflect_index(T, pad)).to(x.device)
+    return x[:, idx]
+
+
 def stft(x: torch.Tensor, n_fft: int, hop_length: int,
          win_length: Optional[int] = None, center: bool = True,
          pad_mode: str = "reflect", normalized: bool = False) -> torch.Tensor:
     """Complex STFT, ``x (..., T)`` -> ``(..., n_frames, n_fft // 2 + 1)``.
 
-    ``center`` pads ``n_fft // 2`` on both sides with ``pad_mode``; frame
-    ``k`` starts at ``k * hop_length``; the window is the periodic Hann
-    of ``win_length`` zero-padded to ``n_fft`` in the middle.
+    ``center`` pads ``n_fft // 2`` on both sides with ``pad_mode``
+    (``reflect`` as numpy reflects, also where the pad is at least the
+    signal's length); frame ``k`` starts at ``k * hop_length``; the
+    window is the periodic Hann of ``win_length`` zero-padded to
+    ``n_fft`` in the middle.
     """
     win_length = win_length or n_fft
     window = _window(n_fft, win_length, x.device).to(x.dtype)
@@ -50,7 +77,8 @@ def stft(x: torch.Tensor, n_fft: int, hop_length: int,
     flat = x.reshape(-1, T)
     if center:
         pad = n_fft // 2
-        flat = F.pad(flat[:, None], (pad, pad), mode=pad_mode)[:, 0]
+        flat = (_pad_reflect(flat, pad) if pad_mode == "reflect" else
+                F.pad(flat[:, None], (pad, pad), mode=pad_mode)[:, 0])
     if flat.shape[-1] < n_fft:
         raise ValueError(f"signal length {flat.shape[-1]} shorter than "
                          f"frame {n_fft}")
@@ -60,3 +88,22 @@ def stft(x: torch.Tensor, n_fft: int, hop_length: int,
         spec = spec / torch.sqrt(torch.sum(window * window))
     return spec.transpose(-1, -2).reshape(*lead, spec.shape[-1],
                                           spec.shape[-2])
+
+
+def multiscale_stft(x: torch.Tensor, scales: Sequence[int],
+                    magnitude: bool = True, normalized: bool = False,
+                    num_mels: Optional[int] = None) -> list[torch.Tensor]:
+    """One centred STFT per scale ``s`` (``n_fft = s``, hop ``s // 4``),
+    its magnitude unless ``magnitude`` is false.  ``x`` is ``(B, T)`` or
+    channels-first ``(B, C, T)``, taken as ``B * C`` signals in that
+    order (the JAX package's ``(B, T, C)`` transposed)."""
+    if num_mels is not None:
+        raise NotImplementedError(
+            "mel-scaled spectral distances are not ported to rave_tpu_torch "
+            "yet (ROADMAP A7)")
+    x = x.reshape(-1, x.shape[-1])
+    out = []
+    for scale in scales:
+        s = stft(x, scale, scale // 4, normalized=normalized)
+        out.append(s.abs() if magnitude else s)
+    return out

@@ -1,7 +1,6 @@
-"""The ``v2_fork`` train step.
+"""The v2 and ``v2_fork`` train steps and the eval step.
 
-Port of the speaker-conditioned, ``recon_loss="mrstft"`` path of
-``rave_tpu/train/loop.py``:
+Port of ``rave_tpu/train/loop.py`` for the variational latent head:
 
 * three Adam groups with ``betas=(adam_b1, adam_b2)`` and eps 1e-8: ENC
   (encoder, latent head, unit CE projection), DEC (decoder) and DIS
@@ -13,18 +12,22 @@ Port of the speaker-conditioned, ``recon_loss="mrstft"`` path of
   ``step >= phase_1_duration``, G on every other step;
 * a G step differentiates the generator only (the discriminator's
   parameters collect no gradient); a D step recomputes the generator
-  forward without gradient;
-* the fork's branch draws no random numbers (the decoder sees the
-  detached raw latent, no noise), so a step is deterministic.
-
-The upstream branch (reparametrised latent, ``audio_distance_v1``)
-belongs to ROADMAP A2.
+  forward without gradient, its latent noise given or drawn as a G
+  step's is;
+* the upstream branch (v2) samples the latent with noise ``eps``, given
+  to the step or drawn from the state's generator, and adds the KL
+  times the beta schedule; its reconstruction loss is
+  ``audio_distance_v1`` over the bands and over the audio.  The fork's
+  branch draws no random numbers (the decoder sees the detached raw
+  latent, no noise), so its step is deterministic;
+* with ``ema_decay`` the state keeps an exponential moving average of
+  the generator's parameters, updated after each G step.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Mapping
+from typing import Mapping, Optional
 
 import torch
 import torch.nn.functional as F
@@ -48,19 +51,24 @@ def group_parameters(model: RAVE, group) -> list:
 
 
 class TrainState:
-    """Generator, discriminator, integer step and the three optimizers.
+    """Generator, discriminator, integer step, the three optimizers, the
+    latent noise generator (seeded by ``seed``, on ``device``) and, with
+    ``cfg.ema_decay``, the EMA of the generator's parameters.
 
     Modules are initialised from PyTorch's global generator (seed it with
     ``torch.manual_seed``); load converted weights before the first step
-    (the optimizers hold the parameter objects, not copies).
+    (the optimizers hold the parameter objects, not copies) and then
+    :meth:`reset_ema`.
     """
 
-    def __init__(self, cfg: RAVEConfig, device="cuda", step: int = 0):
+    def __init__(self, cfg: RAVEConfig, device="cuda", step: int = 0,
+                 seed: int = 0):
         device = resolve_device(device)
         self.cfg = cfg
         self.model = RAVE(cfg, device=device)
         self.disc = build_discriminator(cfg, device)
         self.step = step
+        self.generator = torch.Generator(device=device).manual_seed(seed)
         adam = dict(lr=cfg.learning_rate, betas=(cfg.adam_b1, cfg.adam_b2),
                     eps=1e-8)
         self.enc_params = group_parameters(self.model, ENC_GROUP)
@@ -68,6 +76,25 @@ class TrainState:
         self.enc_opt = torch.optim.Adam(self.enc_params, **adam)
         self.dec_opt = torch.optim.Adam(self.dec_params, **adam)
         self.dis_opt = torch.optim.Adam(self.disc.parameters(), **adam)
+        self.ema: Optional[dict] = None
+        self.reset_ema()
+
+    def reset_ema(self) -> None:
+        """Restart the EMA (with ``cfg.ema_decay``) from the generator's
+        parameters as they are now."""
+        if self.cfg.ema_decay:
+            self.ema = {k: p.detach().clone()
+                        for k, p in self.model.named_parameters()}
+
+    def update_ema(self) -> None:
+        """``ema = ema * decay + params * (1 - decay)``, every generator
+        parameter, frozen ones included (as the JAX package's tree)."""
+        if self.ema is None:
+            return
+        d = self.cfg.ema_decay
+        with torch.no_grad():
+            for k, p in self.model.named_parameters():
+                self.ema[k].mul_(d).add_(p, alpha=1 - d)
 
 
 # ----------------------------------------------------------------------
@@ -157,29 +184,29 @@ def receptive_field_frames(cfg: RAVEConfig) -> tuple[int, int]:
     return rf_frames, rf_frames
 
 
-def _forward_losses(cfg: RAVEConfig, model: RAVE, batch: Mapping) -> dict:
-    """Generator-side forward of the fork: every loss term but the GAN's,
-    and the cropped real and fake audio."""
-    if not cfg.speaker_embedding_size:
-        raise NotImplementedError(
-            "the upstream train branch (reparametrised latent) is not "
-            "ported to rave_tpu_torch yet (ROADMAP A2)")
-    if cfg.recon_loss != "mrstft":
-        raise NotImplementedError(
-            f"recon_loss {cfg.recon_loss!r} (audio_distance_v1) is not "
-            "ported to rave_tpu_torch yet (ROADMAP A2)")
+def _forward_losses(cfg: RAVEConfig, model: RAVE, batch: Mapping,
+                    eps: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None) -> dict:
+    """Generator-side forward: every loss term but the GAN's, the latent
+    regulariser (0 for the fork) and the cropped real and fake audio.
+    The upstream branch samples the latent with ``eps``, or draws it
+    from ``generator``."""
     x = batch["x"]
     bands_x = model.pqmf_forward(x)
     bands_xp = (model.pqmf_forward(batch["x_perturbed"])
                 if "x_perturbed" in batch else bands_x)
     z_pre = model.encode_input(bands_xp)
 
-    ce = x.new_zeros(())
+    ce = reg = x.new_zeros(())
     if cfg.hubert_units > 0 and "units" in batch:
         ce, _ = unit_ce_terms(model, z_pre, batch["units"], cfg.hubert_units)
 
-    # the decoder sees the detached latent: the encoder trains by CE only
-    z_dec = model.condition(z_pre.detach(), model.speaker_embedding(bands_x))
+    if cfg.speaker_embedding_size:
+        # the decoder sees the detached latent: the encoder trains by CE
+        z_dec = model.condition(z_pre.detach(),
+                                model.speaker_embedding(bands_x))
+    else:
+        z_dec, reg = model.reparametrize(z_pre, eps, generator)
     bands_y = model.decode_bands(z_dec)
 
     if cfg.valid_signal_crop:
@@ -196,10 +223,19 @@ def _forward_losses(cfg: RAVEConfig, model: RAVE, batch: Mapping) -> dict:
     x_full = model.pqmf_inverse(bands_x)
     y_full = model.pqmf_inverse(bands_y)
 
-    res = L.mr_stft_resolutions(cfg.sampling_rate, cfg.mr_stft_specs_ms)
-    sc, mag = L.multi_resolution_stft_loss(y_full[..., 0], x_full[..., 0], res)
-    return dict(x=x_full, y=y_full, ce=ce,
-                dists={"audio": (sc + mag) * cfg.mr_stft_weight})
+    if cfg.recon_loss == "mrstft":
+        res = L.mr_stft_resolutions(cfg.sampling_rate, cfg.mr_stft_specs_ms)
+        sc, mag = L.multi_resolution_stft_loss(y_full[..., 0],
+                                               x_full[..., 0], res)
+        dists = {"audio": (sc + mag) * cfg.mr_stft_weight}
+    else:
+        dists = {
+            "multiband_spectral_distance": L.audio_distance_v1(
+                bands_x, bands_y, cfg.stft_scales, cfg.log_epsilon),
+            "fullband_spectral_distance": L.audio_distance_v1(
+                x_full[..., 0], y_full[..., 0], cfg.stft_scales,
+                cfg.log_epsilon)}
+    return dict(x=x_full, y=y_full, ce=ce, reg=reg, dists=dists)
 
 
 # ----------------------------------------------------------------------
@@ -241,10 +277,14 @@ def _frozen(module: torch.nn.Module):
             p.requires_grad_(f)
 
 
-def _generator_step(cfg: RAVEConfig, state: TrainState, batch) -> dict:
+def _generator_step(cfg: RAVEConfig, state: TrainState, batch,
+                    eps: Optional[torch.Tensor]) -> dict:
     with _frozen(state.disc):
-        out = _forward_losses(cfg, state.model, batch)
+        out = _forward_losses(cfg, state.model, batch, eps, state.generator)
         loss_terms = dict(out["dists"])
+        if not cfg.speaker_embedding_size:
+            loss_terms["regularization"] = out["reg"] * schedules.beta_factor(
+                state.step, cfg)
         zero = out["ce"].new_zeros(())
         loss_adv = fm = zero
         if schedules.warmed_up(state.step, cfg):
@@ -263,15 +303,17 @@ def _generator_step(cfg: RAVEConfig, state: TrainState, batch) -> dict:
         p.grad = torch.zeros_like(p) if g is None else g
     state.enc_opt.step()
     state.dec_opt.step()
+    state.update_ema()
     metrics = {f"loss_{k}": v for k, v in loss_terms.items()}
     metrics["loss_ce"] = out["ce"]
     metrics["loss_gen_total"] = total
     return _fill_metrics(cfg, metrics)
 
 
-def _discriminator_step(cfg: RAVEConfig, state: TrainState, batch) -> dict:
+def _discriminator_step(cfg: RAVEConfig, state: TrainState, batch,
+                        eps: Optional[torch.Tensor]) -> dict:
     with torch.no_grad():
-        out = _forward_losses(cfg, state.model, batch)
+        out = _forward_losses(cfg, state.model, batch, eps, state.generator)
     loss_dis, _, _ = _gan_terms(cfg, state.disc, out["x"], out["y"])
     state.dis_opt.zero_grad(set_to_none=True)
     loss_dis.backward()
@@ -280,22 +322,58 @@ def _discriminator_step(cfg: RAVEConfig, state: TrainState, batch) -> dict:
 
 
 def make_train_step(cfg: RAVEConfig):
-    """``train_step(state, batch) -> metrics``: one D or G step chosen by
-    ``state.step``, which it then advances.  ``batch`` holds ``x``
-    ``(B, T, 1)`` float32, optionally ``x_perturbed`` (same shape) and
-    ``units`` ``(B, frames)`` int64, on the state's device.  Metric values
-    are 0-d tensors on that device (or 0.0 for an untaken term), plus
+    """``train_step(state, batch, eps=None) -> metrics``: one D or G step
+    chosen by ``state.step``, which it then advances.  ``batch`` holds
+    ``x`` ``(B, T, 1)`` float32, optionally ``x_perturbed`` (same shape)
+    and ``units`` ``(B, frames)`` int64, on the state's device.  ``eps``
+    ``(B, latent, T_z)`` is the upstream branch's latent noise; without
+    it the step draws it from ``state.generator``.  Metric values are
+    0-d tensors on that device (or 0.0 for an untaken term), plus
     ``beta`` and ``warmed_up`` of the step taken."""
 
-    def train_step(state: TrainState, batch: Mapping) -> dict:
+    def train_step(state: TrainState, batch: Mapping,
+                   eps: Optional[torch.Tensor] = None) -> dict:
         step = state.step
         if schedules.is_discriminator_step(step, cfg):
-            metrics = _discriminator_step(cfg, state, batch)
+            metrics = _discriminator_step(cfg, state, batch, eps)
         else:
-            metrics = _generator_step(cfg, state, batch)
+            metrics = _generator_step(cfg, state, batch, eps)
         state.step = step + 1
         metrics["beta"] = schedules.beta_factor(step, cfg)
         metrics["warmed_up"] = float(schedules.warmed_up(step, cfg))
         return metrics
 
     return train_step
+
+
+def make_eval_step(cfg: RAVEConfig):
+    """``eval_step(state, batch) -> (metrics, y, z_mean)``: the
+    ``audio_distance_v1`` (``validation``) between ``x`` and the full
+    deterministic forward ``y`` ``(B, T, 1)``, and the first half of the
+    pre-regularisation latent's channels ``(B, T_z, C / 2)`` (the
+    posterior mean, which ``latent_stats.fit_latent_pca`` takes).  With
+    ``units`` in the batch and unit CE in the config, also
+    ``val_unit_ce`` and ``val_unit_accuracy``."""
+
+    def eval_step(state: TrainState, batch: Mapping):
+        model, x = state.model, batch["x"]
+        with torch.no_grad():
+            # the forward, its encoder pass shared with z_mean
+            bands = model.pqmf_forward(x)
+            z_pre = model.encode_input(bands)
+            y = model.pqmf_inverse(model.decode_bands(
+                model.inference_latent(bands, z_pre)))
+            t = min(x.shape[1], y.shape[1])
+            metrics = {"validation": L.audio_distance_v1(
+                x[:, :t, 0], y[:, :t, 0], cfg.stft_scales, cfg.log_epsilon)}
+            # the JAX package halves the channels whenever the head is
+            # variational, the fork's single-channel latent included
+            z_mean = z_pre.chunk(2, dim=1)[0].transpose(1, 2)
+            if cfg.hubert_units > 0 and "units" in batch:
+                ce, acc = unit_ce_terms(model, z_pre, batch["units"],
+                                        cfg.hubert_units)
+                metrics["val_unit_ce"] = ce
+                metrics["val_unit_accuracy"] = acc
+        return metrics, y, z_mean
+
+    return eval_step

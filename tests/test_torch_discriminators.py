@@ -124,8 +124,9 @@ def test_build_and_unported_members_raise():
     cfg = build_config(["v2_fork"])
     assert isinstance(td.build_discriminator(cfg, "cpu"),
                       td.CombineDiscriminators)
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        td.build_discriminator(build_config(["v2"]), "cpu")
+    v2 = td.build_discriminator(build_config(["v2"]), "cpu")
+    assert isinstance(v2, td.CombineDiscriminators)
+    assert [n for n, _ in v2.named_children()] == ["mpd", "msd", "msspec"]
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         td.build_discriminator(build_config(["v3"]), "cpu")
 
