@@ -59,6 +59,24 @@ the last line:
    the CPU's losses and ENC/DEC gradient norms (rtol 1e-3); the eval
    step's ``validation`` is finite; a profile of one fused G step gives
    B1's share.
+8. voice_conversion: the full-width ``v2_fork`` preset with
+   ``fused_kernels=true`` (random weights from seed 0) and four synthetic
+   speakers (harmonic tones at distinct f0 plus noise, 262144 samples
+   each).  Offline ``RAVE.convert`` of 4 sources x 131072 samples
+   against 4 targets: finite, shaped like the input, kernel B1 launched
+   exactly 16 times, equal to a ``fused_kernels=false`` copy and to the
+   CPU (1 x 65536) within 2e-4; CUDA-event median of 10 calls, RTF, peak
+   memory and a profile.  Speaker tables (``embed_speaker_audio`` of each
+   speaker with the other three as its cohort) of the BatchNorm encoder
+   and of a ``speaker_norm=cohort`` copy: finite, equal to the CPU's
+   within 1e-4 of their largest magnitude, the cohort rows distinct.
+   ``VoiceConverter`` over one 131072-sample request in 4096-sample
+   chunks against table row 1: against the offline conversion shifted by
+   the streaming delay (median relative error < 0.02), no B1 launch,
+   chunk latency median and p80; then 8 learn-target chunks (zeros out)
+   whose mean embedding equals the CPU converter's; ``set_speaker``
+   clears it.  The fork's ``StreamingRAVE`` over 8 chunks of 2048: card
+   against CPU chunk by chunk within 2e-4.
 
 Before the last line it prints the ``nvidia-smi`` line and one JSON
 object ``{"kernels": [...]}``; the last line is
@@ -101,6 +119,10 @@ TRAIN_V2_METRICS = sorted([
     "warmed_up"])
 OFFLINE_TOL = 2e-4       # max |fused - plain| on tanh-bounded audio
 CPU_TOL = 2e-4           # max |card - cpu| on tanh-bounded audio
+# voice conversion: 262144 samples per speaker, so that enrollment's
+# segments (max(32768, len // 4) = 65536) are a multiple of the 16 bands
+VC_SPEAKERS, VC_SAMPLES, VC_CHUNK = 4, 262144, 4096
+EMB_TOL = 1e-4           # max |card - cpu| / max |e| of speaker embeddings
 
 
 def emit(obj) -> None:
@@ -706,6 +728,203 @@ def phase_train_v2(torch, np, KERNELS):
     return warmup[-1]["launches"]["residual_unit"]
 
 
+def voices(np, n, T, seed=SEED):
+    """``n`` synthetic speakers ``(n, T)``: five harmonics of distinct
+    f0 at seeded phases, plus noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(T) / 44100
+    out = []
+    for i in range(n):
+        f0 = 90.0 * 1.6 ** i * rng.uniform(0.97, 1.03)
+        x = sum(np.sin(2 * np.pi * h * f0 * t + rng.uniform(0, 6)) / h
+                for h in range(1, 6))
+        out.append(0.2 * x + 0.02 * rng.standard_normal(T))
+    return np.stack(out).astype(np.float32)
+
+
+def phase_voice_conversion(torch, np, KERNELS):
+    """Voice-conversion serving of the full-width v2_fork (see the module
+    docstring, phase 8).  Returns B1's launches per offline convert."""
+    from rave_tpu_torch.config import build_config
+    from rave_tpu_torch.export.streaming import StreamingRAVE
+    from rave_tpu_torch.export.voice_conversion import VoiceConverter
+    from rave_tpu_torch.models.rave import RAVE
+
+    counts = lambda: {k.name: k.launches for k in KERNELS}  # noqa: E731
+
+    def reset():
+        for k in KERNELS:
+            k.launches = 0
+
+    cfg = build_config(["v2_fork"], ["fused_kernels=true"])
+    torch.manual_seed(SEED)
+    model = RAVE(cfg, device="cuda").eval()
+    state = model.state_dict()
+    plain = RAVE(build_config(["v2_fork"], ["fused_kernels=false"]),
+                 device="cuda").eval()
+    plain.load_state_dict(state)
+    cpu_state = {k: v.cpu() for k, v in state.items()}
+    cpu = RAVE(cfg, device="cpu").eval()
+    cpu.load_state_dict(cpu_state)
+    speakers = voices(np, VC_SPEAKERS, VC_SAMPLES)
+    half = VC_SAMPLES // 2
+    # speaker i's first half in the voice of speaker i + 1's second half
+    src = torch.tensor(speakers[:, :half, None], device="cuda")
+    tgt = torch.tensor(np.roll(speakers, -1, axis=0)[:, half:, None],
+                       device="cuda")
+
+    # offline convert: launches, checks, times
+    with torch.inference_mode():
+        reset()
+        y = model.convert(src, tgt)
+        torch.cuda.synchronize()
+        launches = counts()
+        check(launches == {"residual_unit": 16, "ci1_conv_forward": 0,
+                           "ci1_conv_dx": 0},
+              f"convert launches {launches}")
+        check(tuple(y.shape) == tuple(src.shape), f"convert shape {y.shape}")
+        check(bool(torch.isfinite(y).all()), "convert output not finite")
+        plain_err = (y - plain.convert(src, tgt)).abs().max().item()
+        check(plain_err <= OFFLINE_TOL, f"convert fused vs plain: {plain_err}")
+        xs, ts = src[:1, :65536], tgt[:1, :65536]
+        cpu_err = (model.convert(xs, ts).cpu()
+                   - cpu.convert(xs.cpu(), ts.cpu())).abs().max().item()
+        check(cpu_err <= CPU_TOL, f"convert card vs cpu: {cpu_err}")
+        torch.cuda.reset_peak_memory_stats()
+        times, times_plain = [], []
+        for _ in range(10):
+            times.append(cuda_ms(torch, lambda: model.convert(src, tgt),
+                                 iters=1, warmup=0))
+            times_plain.append(cuda_ms(torch, lambda: plain.convert(src, tgt),
+                                       iters=1, warmup=0))
+        peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+        prof = device_profile(torch, lambda: model.convert(src, tgt),
+                              names=("residual_unit_kernel",))
+    prof["share"] = {n: ms / prof["device_ms"]
+                     for n, ms in prof["named_ms"].items()}
+    audio_s = VC_SPEAKERS * half / cfg.sampling_rate
+    convert_ms = statistics.median(times)
+    emit({"phase": "voice_conversion", "step": "convert",
+          "config": "v2_fork", "params": sum(p.numel()
+                                             for p in model.parameters()),
+          "batch": [VC_SPEAKERS, half, 1], "launches": launches,
+          "max_abs_err_vs_plain": plain_err, "max_abs_err_vs_cpu": cpu_err,
+          "batch_ms": convert_ms, "rtf": convert_ms / 1e3 / audio_s,
+          "plain_batch_ms": statistics.median(times_plain),
+          "batch_ms_all": times, "peak_mem_mb": peak_mb, "profile": prof})
+    del plain, y
+
+    # speaker tables, BatchNorm and cohort-norm encoders, card and CPU
+    cohort_cfg = build_config(["v2_fork"], ["fused_kernels=true",
+                                            "speaker_norm=cohort"])
+    clips = list(speakers)
+    tables, vcs = {}, {}
+    for norm, c in (("batch", cfg), ("cohort", cohort_cfg)):
+        # the same weights; the cohort norm keeps no running statistics
+        keep = lambda sd: {k: v for k, v in sd.items()  # noqa: E731
+                           if norm == "batch" or ".running_" not in k}
+        vcs[norm] = VoiceConverter(c, keep(state), chunk_size=VC_CHUNK,
+                                   device="cuda")
+        rows = vcs[norm].table_from_clips(clips)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = vcs[norm].table_from_clips(clips)
+        table_ms = (time.perf_counter() - t0) * 1e3
+        rows_cpu = VoiceConverter(c, keep(cpu_state), chunk_size=VC_CHUNK,
+                                  device="cpu").table_from_clips(clips)
+        scale = float(np.abs(rows_cpu).max())
+        err = float(np.abs(rows - rows_cpu).max()) / scale
+        spread = float(max(np.abs(rows[i] - rows[j]).max()
+                           for i in range(len(rows))
+                           for j in range(i))) / scale
+        check(bool(np.isfinite(rows).all()), f"{norm} table not finite")
+        check(err <= EMB_TOL, f"{norm} table card vs cpu: {err}")
+        if norm == "cohort":
+            check(spread > EMB_TOL, f"cohort table rows equal: {spread}")
+        tables[norm] = rows
+        emit({"phase": "voice_conversion", "step": "speaker_table",
+              "norm": norm, "rows": list(rows.shape), "table_ms": table_ms,
+              "rel_err_vs_cpu": err, "max_row_spread": spread})
+    vc = vcs["batch"]
+    del vcs
+
+    # streamed conversion of request 0 against table row 1
+    vc.speaker_table = tables["batch"]
+    vc.set_speaker(1)
+    request = speakers[0, :half]
+    chunks = [request[i:i + VC_CHUNK] for i in range(0, half, VC_CHUNK)]
+    for c in chunks[:8]:   # warm-up
+        vc.forward(c)
+    vc.reset()
+    reset()
+    chunk_ms, outs = [], []
+    for c in chunks:
+        t0 = time.perf_counter()
+        outs.append(vc.forward(c))   # returns numpy: synchronised
+        chunk_ms.append((time.perf_counter() - t0) * 1e3)
+    stream_launches = counts()
+    check(stream_launches["residual_unit"] == 0,
+          f"streamed convert launches {stream_launches}")
+    y_str = np.concatenate(outs)
+    with torch.inference_mode():
+        x1 = src[:1]
+        emb = torch.tensor(vc.current_embedding(), device="cuda")[None]
+        bands = model.pqmf_forward(x1)
+        y_off = model.pqmf_inverse(model.decode_bands(model.condition(
+            model.encode_input(bands), emb)))[0, :, 0].cpu().numpy()
+    d = vc.stream.total_delay_samples()
+    check(d < half // 2, f"delay {d} >= half the request")
+    m = 2 * d + 256
+    a, b = y_off[m - d: half - d - 256], y_str[m: half - 256]
+    rel = float(np.median(np.abs(a - b)) / (np.abs(a).mean() + 1e-9))
+    check(bool(np.isfinite(y_str).all()), "streamed conversion not finite")
+    check(rel < 0.02, f"streamed vs offline convert median rel err {rel}")
+
+    # learn a target from 8 chunks of speaker 2, on the card and the CPU
+    target = speakers[2, :8 * VC_CHUNK]
+    cpu_vc = VoiceConverter(cfg, cpu_state, chunk_size=VC_CHUNK, device="cpu")
+    learned = []
+    for conv in (vc, cpu_vc):
+        conv.reset()
+        conv.set_learn_target(True)
+        for i in range(0, len(target), VC_CHUNK):
+            out = conv.forward(target[i:i + VC_CHUNK])
+            check(not out.any(), "a learn-target chunk returned sound")
+        conv.set_learn_target(False)
+        learned.append(conv.current_embedding().copy())
+    e_err = float(np.abs(learned[0] - learned[1]).max()
+                  / np.abs(learned[1]).max())
+    check(bool(np.isfinite(learned[0]).all()), "learned embedding not finite")
+    check(e_err <= EMB_TOL, f"learned embedding card vs cpu: {e_err}")
+    vc.set_speaker(2)
+    check(np.array_equal(vc.current_embedding(), tables["batch"][2]),
+          "set_speaker did not clear the learned target")
+    emit({"phase": "voice_conversion", "step": "stream",
+          "chunk": VC_CHUNK, "chunks": len(chunk_ms), "delay_samples": d,
+          "median_rel_err": rel, "launches": stream_launches,
+          "chunk_ms_median": statistics.median(chunk_ms),
+          "chunk_ms_p80": float(np.percentile(chunk_ms, 80)),
+          "chunk_ms_max": max(chunk_ms),
+          "chunk_ms_limit": VC_CHUNK / cfg.sampling_rate * 1e3 / 2,
+          "learned_rel_err_vs_cpu": e_err})
+    del vc, cpu_vc
+
+    # the fork's StreamingRAVE, card against CPU chunk by chunk
+    streams = [StreamingRAVE(cfg, sd, chunk_size=CHUNK, device=dev)
+               for sd, dev in ((state, "cuda"), (cpu_state, "cpu"))]
+    reset()
+    fork_err = 0.0
+    for i in range(0, 8 * CHUNK, CHUNK):
+        xc = request[i:i + CHUNK].reshape(1, -1, 1)
+        got, want = (s.forward(xc).cpu() for s in streams)
+        fork_err = max(fork_err, (got - want).abs().max().item())
+    check(fork_err <= CPU_TOL, f"fork stream card vs cpu: {fork_err}")
+    check(counts()["residual_unit"] == 0, f"fork stream launches {counts()}")
+    emit({"phase": "voice_conversion", "step": "fork_streaming",
+          "chunk": CHUNK, "chunks": 8, "max_abs_err_vs_cpu": fork_err})
+    return launches["residual_unit"]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -871,7 +1090,10 @@ def main() -> int:
     # 7. the upstream v2 train step, kernel B1 inside it
     v2_launches = phase_train_v2(torch, np, KERNELS)
 
-    # 8. summary
+    # 8. voice-conversion serving of the fork, kernel B1 in convert
+    vc_launches = phase_voice_conversion(torch, np, KERNELS)
+
+    # 9. summary
     def total(key, path="offline_v2"):
         return sum(s[key] * s["launches_per_call"] for s in shapes
                    if s["path"] == path)
@@ -889,6 +1111,7 @@ def main() -> int:
                      else "bytes"),
         "bound_ms_f32": total("bound_ms_f32"), "library_ms": None,
         "launches_v2_train_step": v2_launches,
+        "launches_vc_convert": vc_launches,
         "train_v2": {k: total(k, "train_v2") for k in (
             "ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms",
             "bound_ms_f32")}}]

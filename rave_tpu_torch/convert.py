@@ -1,8 +1,8 @@
 """Load the JAX package's parameters into the port's modules.
 
 ``load_flax_params(model, params, batch_stats)`` takes the ``params``
-tree of a ``rave_tpu`` RAVE (and, for a speaker-conditioned one, the
-``batch_stats`` collection beside it) as nested dicts of numpy arrays
+tree of a ``rave_tpu`` RAVE (and, for a speaker encoder with BatchNorms,
+the ``batch_stats`` collection beside it) as nested dicts of numpy arrays
 (convert with ``jax.tree.map(np.asarray, tree)`` on the JAX side) and
 fills a :class:`~rave_tpu_torch.models.rave.RAVE`.
 ``load_discriminator_params(disc, params)`` fills a discriminator of
@@ -21,7 +21,9 @@ becomes ``(in, out, k)`` (no flip); weight-norm gains ``(1, 1, out)``
 take the shape of the port's per-output-channel gain.  The speaker
 encoder's named modules keep their flax names (``layer2`` .. ``fc6``,
 ``in_layer`` being flax's ``Conv1d_0``); a flax ``Dense`` kernel
-``(in, out)`` becomes a ``Linear`` weight ``(out, in)``.  A
+``(in, out)`` becomes a ``Linear`` weight ``(out, in)``; the latent
+adversary's ``layers_i`` is entry ``i`` of its ``Sequential``; the AAM
+head's ``weight`` keeps its layout.  A
 discriminator ``WNConv_i`` is the ``i``-th entry of its module's
 ``convs``, its ``v`` ``(*k, in, out)`` becoming ``(out, in, *k)``.
 """
@@ -35,7 +37,7 @@ import torch
 from torch import nn
 
 from .models.blocks import DilatedUnit
-from .models.speaker import FrozenBatchNorm
+from .models.speaker import CohortNorm
 from .ops.conv import Conv1d, ConvTranspose1d
 
 _NAMED = (Conv1d, ConvTranspose1d, DilatedUnit)
@@ -140,18 +142,22 @@ class _Loader:
 
 
 def _load_speaker(ld: _Loader, spk: nn.Module, tree: Mapping,
-                  stats: Mapping, path: str, stats_path: str) -> None:
+                  stats: Optional[Mapping], path: str,
+                  stats_path: str) -> None:
     ld.conv(spk.in_layer, tree["Conv1d_0"], f"{path}Conv1d_0/")
     for name in ("layer2", "layer3", "layer4"):
         ld.named(getattr(spk, name), tree[name], f"{path}{name}/")
     for name in ("cat_layer", "out_layer", "attn1", "attn2"):
         ld.conv(getattr(spk, name), tree[name], f"{path}{name}/")
     for name in ("attn_bn", "bn5"):
-        bn: FrozenBatchNorm = getattr(spk, name)
+        bn = getattr(spk, name)
         ld.leaf(bn.weight, tree[name], f"{path}{name}/", "scale")
         ld.leaf(bn.bias, tree[name], f"{path}{name}/", "bias")
-        ld.leaf(bn.running_mean, stats[name], f"{stats_path}{name}/", "mean")
-        ld.leaf(bn.running_var, stats[name], f"{stats_path}{name}/", "var")
+        if not isinstance(bn, CohortNorm):
+            ld.leaf(bn.running_mean, stats[name], f"{stats_path}{name}/",
+                    "mean")
+            ld.leaf(bn.running_var, stats[name], f"{stats_path}{name}/",
+                    "var")
     ld.leaf(spk.fc6.weight, tree["fc6"], f"{path}fc6/", "kernel",
             lambda a: a.T)
     ld.leaf(spk.fc6.bias, tree["fc6"], f"{path}fc6/", "bias")
@@ -160,7 +166,8 @@ def _load_speaker(ld: _Loader, spk: nn.Module, tree: Mapping,
 def load_flax_params(model: nn.Module, params: Mapping,
                      batch_stats: Optional[Mapping] = None) -> None:
     """Copy a ``rave_tpu`` RAVE ``params`` tree (and its ``batch_stats``
-    collection, needed with a speaker encoder) into ``model`` in place.
+    collection, needed by a speaker encoder with BatchNorms) into
+    ``model`` in place.
 
     Raises if a flax leaf is left unused or a torch tensor unfilled.
     """
@@ -169,16 +176,32 @@ def load_flax_params(model: nn.Module, params: Mapping,
         ld.named(getattr(model, part), params[part], f"params/{part}/")
     trees = {"params": params}
     tensors = [("params/" + n, p) for n, p in model.named_parameters()]
-    if model.speaker_encoder is not None:
-        if batch_stats is None:
-            raise ValueError("a speaker encoder needs the flax batch_stats")
-        _load_speaker(ld, model.speaker_encoder, params["speaker_encoder"],
-                      batch_stats["speaker_encoder"],
+    if batch_stats is not None:
+        trees["batch_stats"] = batch_stats
+    spk = model.speaker_encoder
+    if spk is not None:
+        stats = None
+        if not isinstance(spk.bn5, CohortNorm):
+            if batch_stats is None:
+                raise ValueError("a speaker encoder with BatchNorms needs "
+                                 "the flax batch_stats")
+            stats = batch_stats["speaker_encoder"]
+        _load_speaker(ld, spk, params["speaker_encoder"], stats,
                       "params/speaker_encoder/",
                       "batch_stats/speaker_encoder/")
-        trees["batch_stats"] = batch_stats
-        tensors += [("batch_stats/" + n, b) for n, b in
-                    model.speaker_encoder.named_buffers()]
+        tensors += [("batch_stats/" + n, b) for n, b in spk.named_buffers()]
+    if model.speaker_classifier is not None:
+        ld.leaf(model.speaker_classifier.weight, params["speaker_classifier"],
+                "params/speaker_classifier/", "weight")
+    if model.latent_adversary is not None:
+        adv, tree = model.latent_adversary, params["latent_adversary"]
+        path = "params/latent_adversary/"
+        ld.leaf(adv[0].weight, tree["layers_0"], path + "layers_0/", "scale")
+        ld.leaf(adv[0].bias, tree["layers_0"], path + "layers_0/", "bias")
+        for i in (1, 3):
+            sub, sub_path = tree[f"layers_{i}"], f"{path}layers_{i}/"
+            ld.leaf(adv[i].weight, sub, sub_path, "kernel", lambda a: a.T)
+            ld.leaf(adv[i].bias, sub, sub_path, "bias")
     if model.ce_projection is not None:
         cp, tree = model.ce_projection, params["ce_projection"]
         path = "params/ce_projection/"

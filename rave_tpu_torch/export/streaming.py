@@ -1,11 +1,14 @@
-"""Chunked streaming inference (mono) for the v2 codec.
+"""Chunked streaming inference (mono) for the v2 codec and ``v2_fork``.
 
 Port of ``StreamingRAVE`` in ``rave_tpu/export/streaming.py``.  The model
 is rebuilt in streaming mode and the offline parameters are loaded
 unchanged; each conv carries its left context (or overlap-add tail, or
 delay line) as a cache tensor from one chunk to the next, and ``reset``
 drops every cache.  The end-to-end latency is the static
-``total_delay_samples``.
+``total_delay_samples``.  For the fork, ``encode`` appends to each frame
+the speaker embedding of the chunk's streamed bands (the speaker encoder
+runs offline on the chunk alone, without caches), and ``decode`` takes
+that latent.
 """
 
 from __future__ import annotations
@@ -79,12 +82,13 @@ class StreamingRAVE:
 
     @torch.inference_mode()
     def encode(self, x_chunk) -> torch.Tensor:
-        """Audio chunk -> latent ``(B, chunk / total_ratio, latent)``."""
+        """Audio chunk -> latent ``(B, chunk / total_ratio, C)``: the
+        latent, and for the fork the chunk's speaker embedding."""
         return self.model.encode(self._tensor(x_chunk))
 
     @torch.inference_mode()
     def decode(self, z) -> torch.Tensor:
-        """Latent ``(B, T_z, latent)`` -> audio chunk ``(B, T, 1)``."""
+        """Latent ``(B, T_z, C)`` -> audio chunk ``(B, T, 1)``."""
         return self.model.decode(self._tensor(z))
 
     def process_file(self, x: np.ndarray) -> np.ndarray:

@@ -5,9 +5,12 @@ Port of ``rave_tpu/models/rave.py`` for the v2 and ``v2_fork`` presets:
 ``encode`` takes the variational mean (deterministic) or, speaker-
 conditioned, the raw content latent with the frozen speaker embedding
 appended; ``decode`` runs the generator and PQMF synthesis; ``forward``
-is ``decode(encode(x))``.  The same module serves offline
+is ``decode(encode(x))``; ``convert`` conditions a source's content on a
+target's speaker embedding.  The same module serves offline
 (``streaming=False``) and chunked streaming (``streaming=True``, caches
-carried in the conv modules; the fork streams in ROADMAP A3).
+carried in the conv modules; the speaker encoder always runs offline).
+A fork trained with its speaker encoder (cohort norm, AAM head, latent
+adversary) loads and serves; its training raises in ``train/loop.py``.
 
 Options outside this slice raise ``NotImplementedError`` naming the
 ROADMAP item that ports them.
@@ -26,7 +29,7 @@ from ..ops.conv import StreamSetup
 from ..ops.pqmf import PQMF, _pqmf_kernels
 from .blocks import EncoderV2, GeneratorV2
 from .latent import VariationalHead
-from .speaker import SpeakerRAVE
+from .speaker import AAMSpeakerHead, SpeakerRAVE
 
 
 def check_supported(cfg: RAVEConfig) -> None:
@@ -42,11 +45,6 @@ def check_supported(cfg: RAVEConfig) -> None:
         (cfg.latent_head == "discrete", "the discrete latent head", "A4"),
         (cfg.latent_head in ("wasserstein", "spherical")
          or cfg.noise_augmentation, f"the {cfg.latent_head} latent head", "A6"),
-        (cfg.speaker_embedding_size
-         and (cfg.train_speaker_encoder or cfg.speaker_classes
-              or cfg.latent_adversary_weight or cfg.speaker_norm == "cohort"),
-         "speaker-encoder training (cohort norm, AAM head, latent "
-         "adversary)", "A3"),
         (cfg.pitch_embedding_size, "pitch conditioning", "A8"),
         (cfg.compute_dtype != "float32",
          f"compute_dtype {cfg.compute_dtype!r}", "A10"),
@@ -57,8 +55,19 @@ def check_supported(cfg: RAVEConfig) -> None:
                 f"{what} is not ported to rave_tpu_torch yet (ROADMAP {item})")
     if cfg.latent_head != "variational":
         raise ValueError(f"unknown latent head {cfg.latent_head!r}")
-    if cfg.speaker_norm not in ("auto", "batch", "cohort"):
+    speaker_norm(cfg)
+
+
+def speaker_norm(cfg: RAVEConfig) -> str:
+    """The speaker encoder's norm: ``"cohort"`` (batch statistics) or
+    ``"batch"`` (stored statistics); ``"auto"`` is ``"cohort"`` when the
+    encoder is trained from scratch (``train_speaker_encoder``)."""
+    norm = cfg.speaker_norm
+    if norm == "auto":
+        norm = "cohort" if cfg.train_speaker_encoder else "batch"
+    if norm not in ("cohort", "batch"):
         raise ValueError(f"unknown speaker_norm {cfg.speaker_norm!r}")
+    return norm
 
 
 def encoder_n_out(cfg: RAVEConfig) -> int:
@@ -160,10 +169,6 @@ class RAVE(nn.Module):
                  device="cuda"):
         super().__init__()
         check_supported(cfg)
-        if streaming and cfg.speaker_embedding_size:
-            raise NotImplementedError(
-                "streaming voice conversion is not ported to rave_tpu_torch "
-                "yet (ROADMAP A3)")
         device = resolve_device(device)
         self.cfg = cfg
         self.streaming = streaming
@@ -179,15 +184,29 @@ class RAVE(nn.Module):
                          inverse_parity=self.band_delay % 2, ss=ss)
         self.speaker_encoder = None
         if cfg.speaker_embedding_size:
-            # frozen, BatchNorm on stored statistics ("auto" resolves to
-            # "batch" while the encoder is not trained)
-            self.speaker_encoder = SpeakerRAVE(cfg.n_band)
+            # frozen; built without the stream setup, so offline and
+            # centered even in a streaming model
+            self.speaker_encoder = SpeakerRAVE(
+                cfg.n_band, cohort_norm=speaker_norm(cfg) == "cohort")
             self.speaker_encoder.requires_grad_(False)
         self.ce_projection = None
         if cfg.hubert_units:
             self.ce_projection = CrossEntropyProjection(
                 cfg.latent_size * encoder_n_out(cfg),
                 cfg.n_signal // cfg.total_ratio(), cfg.hubert_units)
+        self.latent_adversary = None
+        if (cfg.speaker_embedding_size and cfg.latent_adversary_weight > 0
+                and cfg.speaker_classes > 0):
+            # speaker probe on the mean and std of the content latent;
+            # indices 0, 1, 3 are flax's layers_0, layers_1, layers_3
+            width = 2 * cfg.latent_size * encoder_n_out(cfg)
+            self.latent_adversary = nn.Sequential(
+                nn.LayerNorm(width, eps=1e-6), nn.Linear(width, 128),
+                nn.ReLU(), nn.Linear(128, cfg.speaker_classes))
+        self.speaker_classifier = None
+        if cfg.speaker_embedding_size and cfg.speaker_classes > 0:
+            self.speaker_classifier = AAMSpeakerHead(
+                cfg.speaker_embedding_size, cfg.speaker_classes)
         self.to(device)
 
     def pqmf_forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -215,6 +234,22 @@ class RAVE(nn.Module):
         ``(B, C, T_z)``."""
         return torch.cat([z, emb[:, :, None].expand(-1, -1, z.shape[2])],
                          dim=1)
+
+    def adversary_logits(self, z: torch.Tensor) -> torch.Tensor:
+        """Speaker logits ``(B, classes)`` of the latent adversary from the
+        content latent ``(B, C, T_z)``: its mean and biased std over time,
+        then the MLP."""
+        pooled = torch.cat([z.mean(dim=2), z.std(dim=2, correction=0)],
+                           dim=-1)
+        return self.latent_adversary(pooled)
+
+    def classify_speaker(self, emb: torch.Tensor,
+                         labels: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+        """Speaker-id logits ``(B, classes)`` of the embedding ``(B, E)``
+        by the AAM head; with ``labels`` the target class's margin is
+        applied."""
+        return self.speaker_classifier(emb, labels)
 
     def reparametrize(self, z: torch.Tensor,
                       eps: Optional[torch.Tensor] = None,
@@ -256,3 +291,30 @@ class RAVE(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.decode(self.encode(x))
+
+    def convert(self, x: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+        """Voice conversion, offline: the content of ``x`` ``(B, T, 1)``
+        in the voice of ``target`` ``(B, T', 1)``.  The first
+        ``min(T, T')`` samples of each are cut into ``segs`` segments (4
+        from 4 * 32768 samples on, else 2) and embedded as ONE batch,
+        sources first, so that a cohort-norm encoder whitens each target
+        against the sources; the embedding is the mean over the target's
+        segments.  A segment length that is not a multiple of the band
+        count fails in the PQMF, as in the JAX package."""
+        if self.speaker_encoder is None:
+            raise ValueError("convert needs a speaker-conditioned model")
+        bands = self.pqmf_forward(x)
+        z = self.encode_input(bands)
+        B = target.shape[0]
+        T = min(x.shape[1], target.shape[1])
+        segs = 4 if T >= 4 * 32768 else 2
+        seg_len = T // segs
+
+        def chunks(a):
+            return a[:, :segs * seg_len].reshape(B * segs, seg_len,
+                                                 a.shape[-1])
+
+        cohort = torch.cat([chunks(x), chunks(target)], dim=0)
+        emb_all = self.speaker_embedding(self.pqmf_forward(cohort))
+        emb = emb_all.reshape(2, B, segs, -1)[1].mean(dim=1)
+        return self.pqmf_inverse(self.decode_bands(self.condition(z, emb)))

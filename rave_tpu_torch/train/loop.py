@@ -35,7 +35,7 @@ import torch.nn.functional as F
 from .. import resolve_device
 from ..config import RAVEConfig
 from ..models.discriminators import build_discriminator, member_sub_count
-from ..models.rave import RAVE
+from ..models.rave import RAVE, speaker_norm
 from ..ops import losses as L
 from ..ops.pqmf import _pqmf_kernels
 from . import schedules
@@ -48,6 +48,19 @@ def group_parameters(model: RAVE, group) -> list:
     """The trainable parameters of ``model``'s submodules in ``group``."""
     return [p for name in group if getattr(model, name, None) is not None
             for p in getattr(model, name).parameters()]
+
+
+def _check_trainable(cfg: RAVEConfig) -> None:
+    """Raise ``NotImplementedError`` for a speaker-conditioned config that
+    trains its speaker encoder or its heads: their losses and optimizer
+    group are not ported (the model itself builds and serves)."""
+    if cfg.speaker_embedding_size and (
+            cfg.train_speaker_encoder or cfg.speaker_classes
+            or cfg.latent_adversary_weight or speaker_norm(cfg) == "cohort"):
+        raise NotImplementedError(
+            "training the speaker encoder (cohort norm, AAM head, latent "
+            "adversary, speaker_learning_rate group) is not ported to "
+            "rave_tpu_torch yet (ROADMAP A3)")
 
 
 class TrainState:
@@ -63,6 +76,7 @@ class TrainState:
 
     def __init__(self, cfg: RAVEConfig, device="cuda", step: int = 0,
                  seed: int = 0):
+        _check_trainable(cfg)
         device = resolve_device(device)
         self.cfg = cfg
         self.model = RAVE(cfg, device=device)

@@ -113,7 +113,7 @@ def test_variational_head_sampling_matches():
                                   ["compute_dtype=bfloat16"],
                                   ["latent_head=discrete"],
                                   ["speaker_embedding_size=256",
-                                   "train_speaker_encoder=true"]])
+                                   "pitch_embedding_size=1"]])
 def test_unsupported_options_raise(over):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         RAVE(build_config(["v2"], TINY + over), device="cpu")

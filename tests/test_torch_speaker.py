@@ -22,6 +22,7 @@ from rave_tpu_torch.config import build_config
 from rave_tpu_torch.convert import load_flax_params
 from rave_tpu_torch.models.rave import RAVE
 from rave_tpu_torch.models.speaker import SpeakerRAVE
+from rave_tpu_torch.train.loop import TrainState
 
 TINY = ["capacity=4", "n_signal=8192", "ratios=[2,2]",
         "dilations=[[1,3],[1,3]]"]
@@ -123,7 +124,13 @@ def test_fork_converter_needs_batch_stats_and_uses_every_leaf():
 
 @pytest.mark.parametrize("over", [["train_speaker_encoder=true"],
                                   ["speaker_classes=8"],
-                                  ["speaker_norm=cohort"]])
+                                  ["speaker_norm=cohort"],
+                                  ["speaker_classes=8",
+                                   "latent_adversary_weight=0.1"]])
 def test_speaker_training_options_raise(over):
+    """The model builds and serves; its train step raises (its losses and
+    optimizer group are not ported)."""
+    cfg = build_config(["v2_fork"], TINY + over)
+    RAVE(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        RAVE(build_config(["v2_fork"], TINY + over), device="cpu")
+        TrainState(cfg, device="cpu")
