@@ -77,6 +77,29 @@ the last line:
    whose mean embedding equals the CPU converter's; ``set_speaker``
    clears it.  The fork's ``StreamingRAVE`` over 8 chunks of 2048: card
    against CPU chunk by chunk within 2e-4.
+9. train_vc: training a voice-conversion fork from scratch.  (a) The
+   full-width ``v2_fork`` preset with ``fused_kernels=true
+   train_speaker_encoder=true speaker_classes=8
+   latent_adversary_weight=0.5`` (cohort norm), batch 8 x 131072 of the
+   synthetic speakers (one per class), a seeded gain/EQ perturbed view
+   and seeded unit ids, from ``phase_1_duration``: one D, G, G, G cycle
+   (kernels B1/B2/B3 launched 16/3/0 times per D step and 16/3/3 per G
+   step; every metric finite with the JAX package's names, the speaker
+   terms non-zero on G steps only; DIS moves only on D steps, ENC, DEC
+   and SPK only on G steps), three timed cycles, then a D, G pair at
+   4 x 65536 against the CPU (one thread): losses and ENC/DEC/SPK
+   gradient norms rtol 1e-3.  The same for a ``speaker_norm=batch``
+   copy, whose running statistics advance on every step and equal the
+   CPU's after the D and the G step (rtol 1e-4).  A profile of one G
+   step and the speaker encoder's share of it.  (b) ``python -m
+   rave_tpu_torch.cli`` preprocess, perturb (2 variants), units and
+   train (12 steps, ``phase_1_duration=4``, validation and checkpoints
+   at step 8, two loader workers, ``--profile``) on 8 speakers x 4 clips
+   of 131072 samples written under ``_smoke/``: the speaker CE,
+   validation and conversion metrics logged, the last and best
+   checkpoints written, the last one restoring bit for bit on the card;
+   then ``--resume`` to step 16.  Steps per second and the loader's
+   share from the section times.
 
 Before the last line it prints the ``nvidia-smi`` line and one JSON
 object ``{"kernels": [...]}``; the last line is
@@ -925,6 +948,318 @@ def phase_voice_conversion(torch, np, KERNELS):
     return launches["residual_unit"]
 
 
+# train_vc: the from-scratch fork step (8 synthetic speakers, one per
+# class) and a CLI run on a corpus of 8 speakers x 4 clips
+VC_TRAIN = ["fused_kernels=true", "train_speaker_encoder=true",
+            "speaker_classes=8", "latent_adversary_weight=0.5"]
+TRAIN_VC_METRICS = sorted(TRAIN_METRICS + [
+    "loss_speaker_ce", "speaker_accuracy", "loss_latent_adversary",
+    "latent_adversary_accuracy"])
+BN_RTOL = 1e-4           # card vs cpu running statistics of the BatchNorms
+SMOKE_DIR = "_smoke"     # git-ignored; the CLI run's corpus, db and runs
+
+
+def vc_batch(torch, np, B, T, frames, device="cuda", seed=SEED):
+    """``voices`` as a train batch: speaker ``i`` is class ``i``; the
+    perturbed view is a seeded gain and one-tap EQ of the clean one."""
+    rng = np.random.default_rng(seed + 1)
+    x = voices(np, B, T, seed)
+    g = rng.uniform(0.5, 1.0, (B, 1))
+    a = rng.uniform(-0.5, 0.5, (B, 1))
+    xp = (g * (x + a * np.roll(x, 1, axis=1))).astype(np.float32)
+    return {"x": torch.tensor(x[:, :, None], device=device),
+            "x_perturbed": torch.tensor(xp[:, :, None], device=device),
+            "units": torch.tensor(rng.integers(0, 100, (B, frames)),
+                                  device=device),
+            "speaker": torch.arange(B, device=device)}
+
+
+def bn_stats(torch, model):
+    spk = model.speaker_encoder
+    return torch.cat([getattr(getattr(spk, n), f"running_{leaf}").cpu()
+                      for n in ("attn_bn", "bn5") for leaf in ("mean", "var")])
+
+
+def phase_train_vc_step(torch, np, KERNELS, norm, device="cuda"):
+    """(a) of phase 9: the full-width from-scratch v2_fork step with the
+    ``norm`` speaker encoder: launches and moved groups per step, timed
+    D, G, G, G cycles, and a short D, G pair against the CPU."""
+    from rave_tpu_torch.config import build_config
+    from rave_tpu_torch.train import loop, schedules
+
+    counts = lambda: {k.name: k.launches for k in KERNELS}  # noqa: E731
+
+    def reset():
+        for k in KERNELS:
+            k.launches = 0
+
+    def kind_of(st):
+        return "D" if schedules.is_discriminator_step(st.step, st.cfg) else "G"
+
+    t_phase = time.perf_counter()
+    over = VC_TRAIN + [f"speaker_norm={norm}"]
+    cfg = build_config(["v2_fork"], over)
+    torch.manual_seed(SEED)
+    state = loop.TrainState(cfg, device=device, step=cfg.phase_1_duration)
+    check(state.model.speaker_encoder.train_bn == (norm == "batch"),
+          f"{norm}: train_bn {state.model.speaker_encoder.train_bn}")
+    step_fn = loop.make_train_step(cfg)
+    batch = vc_batch(torch, np, TRAIN_BATCH, cfg.n_signal, 148, device)
+    groups = {"dis": list(state.disc.parameters()),
+              "enc": state.enc_params, "dec": state.dec_params,
+              "spk": state.spk_params}
+    check(loop.spk_group(cfg) == ("speaker_classifier", "latent_adversary",
+                                  "speaker_encoder"),
+          f"SPK group {loop.spk_group(cfg)}")
+
+    # warm-up cycle D, G, G, G
+    cycle = []
+    for _ in range(4):
+        kind = kind_of(state)
+        before = {g: [p.detach().clone() for p in ps]
+                  for g, ps in groups.items()}
+        stats = bn_stats(torch, state.model) if norm == "batch" else None
+        reset()
+        metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        launches = counts()
+        want = {"residual_unit": 16, "ci1_conv_forward": 3,
+                "ci1_conv_dx": 3 if kind == "G" else 0}
+        check(launches == want, f"train_vc {norm} {kind} launches {launches}")
+        values = {k: float(v) for k, v in metrics.items()}
+        check(sorted(values) == TRAIN_VC_METRICS,
+              f"train_vc metric names {sorted(values)}")
+        check(all(np.isfinite(v) for v in values.values()),
+              f"train_vc {norm} {kind} metrics not finite: {values}")
+        check((values["loss_speaker_ce"] > 0) == (kind == "G")
+              and (values["loss_latent_adversary"] > 0) == (kind == "G"),
+              f"train_vc {norm} {kind} speaker terms {values}")
+        moved = {g: any(not torch.equal(p, q) for p, q in zip(ps, before[g]))
+                 for g, ps in groups.items()}
+        want = {"dis": kind == "D", "enc": kind == "G", "dec": kind == "G",
+                "spk": kind == "G"}
+        check(moved == want, f"train_vc {kind} moved {moved}, expected {want}")
+        if stats is not None:
+            check(not torch.equal(stats, bn_stats(torch, state.model)),
+                  f"train_vc {kind} step left the running statistics")
+        cycle.append({"kind": kind, "launches": launches, "metrics": values})
+    check([c["kind"] for c in cycle] == ["D", "G", "G", "G"],
+          f"train_vc cycle {[c['kind'] for c in cycle]}")
+    del before
+
+    # timed cycles
+    torch.cuda.reset_peak_memory_stats()
+    times = {"D": [], "G": []}
+    for _ in range(3 * 4):
+        kind = kind_of(state)
+        times[kind].append(cuda_ms(torch, lambda: step_fn(state, batch),
+                                   iters=1, warmup=0))
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    d_ms, g_ms = statistics.median(times["D"]), statistics.median(times["G"])
+    audio_s = TRAIN_BATCH * cfg.n_signal / cfg.sampling_rate
+
+    # a short D, G pair on the card and on the CPU (one thread: PyTorch's
+    # threaded oneDNN conv1d data gradient is wrong at some strided
+    # shapes); four items, four speakers, so that the cohort norm sees a
+    # cohort
+    short = build_config(["v2_fork"], over + ["n_signal=65536",
+                                              "batch_size=4"])
+    torch.manual_seed(SEED + 1)
+    card = loop.TrainState(short, device=device, step=short.phase_1_duration)
+    cpu = loop.TrainState(short, device="cpu", step=short.phase_1_duration)
+    cpu.model.load_state_dict({k: v.cpu() for k, v in
+                               card.model.state_dict().items()})
+    cpu.disc.load_state_dict({k: v.cpu() for k, v in
+                              card.disc.state_dict().items()})
+    sb = vc_batch(torch, np, 4, short.n_signal, 74, device, seed=SEED + 2)
+    sb_cpu = {k: v.cpu() for k, v in sb.items()}
+    short_fn = loop.make_train_step(short)
+    threads = torch.get_num_threads()
+    rel, stats_err, short_launches = {}, {}, {}
+    for kind in ("D", "G"):
+        check(kind_of(card) == kind, f"short step {kind_of(card)} != {kind}")
+        reset()
+        m_card = {k: float(v) for k, v in short_fn(card, sb).items()}
+        short_launches[kind] = counts()
+        torch.set_num_threads(1)
+        try:
+            m_cpu = {k: float(v) for k, v in short_fn(cpu, sb_cpu).items()}
+        finally:
+            torch.set_num_threads(threads)
+        rel.update({f"{kind}/{k}": abs(m_card[k] - m_cpu[k])
+                    / max(abs(m_cpu[k]), 1e-12) for k in m_cpu})
+        if norm == "batch":
+            a, b = bn_stats(torch, card.model), bn_stats(torch, cpu.model)
+            stats_err[kind] = float(((a - b).abs() / b.abs().clamp_min(
+                1e-6)).max())
+            check(torch.allclose(a, b, rtol=BN_RTOL, atol=1e-7),
+                  f"train_vc batch norm stats after {kind}: {stats_err}")
+
+    def norms(st):
+        return {g: float(torch.sqrt(sum((p.grad.double() ** 2).sum()
+                                        for p in ps)))
+                for g, ps in (("enc", st.enc_params), ("dec", st.dec_params),
+                              ("spk", st.spk_params))}
+
+    n_card, n_cpu = norms(card), norms(cpu)
+    rel.update({f"grad_norm_{g}": abs(n_card[g] - n_cpu[g]) / n_cpu[g]
+                for g in n_cpu})
+    check(max(rel.values()) <= TRAIN_RTOL, f"train_vc card vs cpu: {rel}")
+    del card, cpu
+
+    out = {"phase": "train_vc", "step": "full_width", "norm": norm,
+           "config": "v2_fork", "overrides": over,
+           "params": {g: sum(p.numel() for p in ps)
+                      for g, ps in groups.items()},
+           "batch": [TRAIN_BATCH, cfg.n_signal, 1],
+           "start_step": cfg.phase_1_duration, "warmup_cycle": cycle,
+           "d_step_ms": d_ms, "g_step_ms": g_ms,
+           "d_step_ms_all": times["D"], "g_step_ms_all": times["G"],
+           "audio_s_per_s": 4 * audio_s / ((d_ms + 3 * g_ms) / 1e3),
+           "peak_mem_mb": peak_mb,
+           "card_vs_cpu": {"rel_err": rel, "grad_norms_card": n_card,
+                           "grad_norms_cpu": n_cpu,
+                           "bn_stats_rel_err": stats_err,
+                           "launches": short_launches}}
+    if norm == "cohort":
+        # where the time of one G step goes, and the speaker encoder's
+        # share: its forward and parameter gradient on the step's bands
+        def one_g_step():
+            state.step = cfg.phase_1_duration + 4 * 10 + 1
+            step_fn(state, batch)
+
+        prof = device_profile(torch, one_g_step,
+                              names=("residual_unit_kernel",
+                                     "ci1_fwd_kernel", "ci1_dx_kernel"))
+        spk = state.model.speaker_encoder
+        bands = state.model.pqmf_forward(batch["x"]).detach()
+        spk_params = list(spk.parameters())
+
+        def spk_fwd_bwd():
+            torch.autograd.grad(spk(bands).square().sum(), spk_params)
+
+        spk_ms = device_ms(torch, spk_fwd_bwd, iters=5)
+        prof["share"] = {n: ms / prof["device_ms"]
+                         for n, ms in prof["named_ms"].items()}
+        prof["speaker_encoder_ms"] = spk_ms
+        prof["share"]["speaker_encoder"] = spk_ms / prof["device_ms"]
+        out["g_step_profile"] = prof
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return cycle[0]["launches"], cycle[1]["launches"]
+
+
+def _sections(text: str) -> dict:
+    """The last ``Sections`` print of a ``--profile`` run:
+    ``{name: (total ms, count)}``."""
+    import re
+    found = {}
+    for line in text.splitlines():
+        m = re.match(r"^(\w+): total ([\d.]+)ms avg [\d.]+ms x(\d+)$",
+                     line.strip())
+        if m:
+            found[m.group(1)] = (float(m.group(2)), int(m.group(3)))
+    return found
+
+
+def phase_train_vc_cli(torch, np, device="cuda"):
+    """(b) of phase 9: ``python -m rave_tpu_torch.cli`` preprocess,
+    perturb, units and train on a corpus of 8 synthetic speakers, then
+    ``--resume``; the checkpoint restores bit for bit."""
+    import shutil
+    from pathlib import Path
+    from rave_tpu_torch.config import build_config
+    from rave_tpu_torch.data.audio_io import save_wav
+    from rave_tpu_torch.train import checkpoint, loop
+
+    t_phase = time.perf_counter()
+    root = Path(SMOKE_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    clips = voices(np, 8, 4 * SAMPLES, seed=SEED + 3)
+    for s in range(8):
+        d = root / "audio" / f"spk{s}"
+        d.mkdir(parents=True)
+        for k in range(4):
+            save_wav(str(d / f"{k}.wav"), clips[s, k * SAMPLES:
+                                                (k + 1) * SAMPLES], 44100)
+    db, runs = str(root / "db"), str(root / "runs")
+
+    def cli(*args, timeout=600):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "rave_tpu_torch.cli",
+                            *args], capture_output=True, text=True,
+                           timeout=timeout)
+        check(r.returncode == 0, f"cli {args[0]} exited {r.returncode}: "
+              f"{r.stderr[-2000:]}")
+        return r.stdout, time.perf_counter() - t0
+
+    seconds = {}
+    _, seconds["preprocess"] = cli("preprocess", "--input_path",
+                                   str(root / "audio"), "--output_path", db,
+                                   "--num_workers", "4")
+    _, seconds["perturb"] = cli("perturb", "--db_path", db, "--variants", "2",
+                                "--num_workers", "8")
+    _, seconds["units"] = cli("units", "--db_path", db)
+    over = ["fused_kernels=true", "train_speaker_encoder=true",
+            "speaker_classes=8", "phase_1_duration=4"]
+    train = ["train", "--config", "v2_fork",
+             *[a for o in over for a in ("--override", o)],
+             "--db_path", db, "--out_path", runs, "--val_every", "8",
+             "--ckpt_every", "8", "--num_workers", "2", "--profile",
+             "--device", device]
+    out, seconds["train"] = cli(*train, "--max_steps", "12")
+    check("finished at step 12" in out, f"train did not finish: {out[-2000:]}")
+    run = next(Path(runs).iterdir())
+    recs = [json.loads(line) for line in
+            (run / "metrics.jsonl").read_text().splitlines()]
+    val = [r for r in recs if "validation" in r]
+    check(recs[0].get("loss_speaker_ce", 0) > 0, f"step 0 metrics {recs[0]}")
+    check(len(val) == 1 and np.isfinite(val[0]["validation"])
+          and all(f"conversion_spk_cos_{k}" in val[0]
+                  for k in ("target", "source", "pair")),
+          f"validation records {val}")
+    ck = run / "checkpoints"
+    names = sorted(p.name for p in ck.glob("ckpt_*.pt"))
+    check(names == ["ckpt_12.pt", "ckpt_9.pt"]
+          and [p.name for p in (ck / "best").glob("*.pt")] == ["ckpt_9.pt"],
+          f"checkpoints {names}")
+    sec = _sections(out)
+    check({"load", "put", "step"} <= set(sec), f"profile sections {sec}")
+    wall = sum(sec[k][0] for k in ("load", "put", "step"))
+
+    # the last checkpoint, restored into a fresh state on the card
+    saved = torch.load(ck / "ckpt_12.pt", weights_only=True)
+    cfg = build_config(["v2_fork"], over)
+    restored = loop.TrainState(cfg, device=device)
+    checkpoint.CheckpointManager(run).restore(restored, step=12)
+    got = checkpoint.state_dict(restored)
+
+    def same(a, b):
+        if torch.is_tensor(a):
+            return a.dtype == b.dtype and torch.equal(a, b)
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(map(same, a, b))
+        return a == b
+
+    check(same(got, saved), "restored state differs from the checkpoint")
+    del restored, got, saved
+
+    out2, seconds["resume"] = cli(*train, "--max_steps", "16", "--resume")
+    check("resumed from step 12" in out2 and "finished at step 16" in out2,
+          f"resume: {out2[-2000:]}")
+    emit({"phase": "train_vc", "step": "cli", "overrides": over,
+          "records": json.loads((Path(db) / "meta.json").read_text())["count"],
+          "seconds": seconds, "sections_ms": sec,
+          "steps_per_s": sec["step"][1] / (wall / 1e3),
+          "loader_share": (sec["load"][0] + sec["put"][0]) / wall,
+          "validation": val[0], "checkpoints": names,
+          "restored_bit_exact": True,
+          "phase_seconds": time.perf_counter() - t_phase})
+    shutil.rmtree(root)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1093,7 +1428,14 @@ def main() -> int:
     # 8. voice-conversion serving of the fork, kernel B1 in convert
     vc_launches = phase_voice_conversion(torch, np, KERNELS)
 
-    # 9. summary
+    # 9. from-scratch speaker training: the step in both norms, the CLI
+    vc_launches_d, vc_launches_g = phase_train_vc_step(torch, np, KERNELS,
+                                                       "cohort")
+    phase_train_vc_step(torch, np, KERNELS, "batch")
+    phase_train_vc_cli(torch, np)
+    train_vc_launches = {"D": vc_launches_d, "G": vc_launches_g}
+
+    # 10. summary
     def total(key, path="offline_v2"):
         return sum(s[key] * s["launches_per_call"] for s in shapes
                    if s["path"] == path)
@@ -1112,6 +1454,8 @@ def main() -> int:
         "bound_ms_f32": total("bound_ms_f32"), "library_ms": None,
         "launches_v2_train_step": v2_launches,
         "launches_vc_convert": vc_launches,
+        "launches_train_vc_step": {k: v["residual_unit"]
+                                   for k, v in train_vc_launches.items()},
         "train_v2": {k: total(k, "train_v2") for k in (
             "ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms",
             "bound_ms_f32")}}]
@@ -1132,6 +1476,8 @@ def main() -> int:
             "bound_ms": per("bound_ms"),
             "bound_by": ("operations" if per("ops_ms") >= per("bytes_ms")
                          else "bytes"),
+            "launches_train_vc_step": {k: v[name] for k, v in
+                                       train_vc_launches.items()},
             "library_ms": per("plain_ms")})
     print(smi, flush=True)
     emit({"kernels": kernels})

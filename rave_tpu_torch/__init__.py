@@ -11,14 +11,15 @@ kernels (``ops/kernels``) run on CUDA tensors; their plain PyTorch
 versions run only on tensors the caller placed on the CPU.
 """
 
-import torch
-
 __version__ = "0.1.0"
 
 
-def resolve_device(device="cuda") -> torch.device:
-    """The device an entry point runs on: ``"cuda"`` unless the caller
-    asked for another.  Never falls back to the CPU by itself."""
+def resolve_device(device="cuda"):
+    """The ``torch.device`` an entry point runs on: ``"cuda"`` unless the
+    caller asked for another.  Never falls back to the CPU by itself.
+    (torch is imported here, not with the package, so that the data
+    pipeline's worker processes start without it.)"""
+    import torch
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

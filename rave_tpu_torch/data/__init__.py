@@ -1,1 +1,1 @@
-"""Audio input of the port."""
+"""Audio input of the port: decoding, the db, augmentation, units."""

@@ -48,7 +48,8 @@ class StreamingRAVE:
                 "the host-rate resampler is not ported yet (ROADMAP A9)")
         self.cfg = cfg
         self.chunk = chunk_size
-        self.model = RAVE(cfg, streaming=True, device=device)
+        self.model = RAVE(cfg, streaming=True, device=device,
+                          train_mode=False)
         self.model.load_state_dict(params)
         self.model.eval()
         self.device = next(self.model.parameters()).device

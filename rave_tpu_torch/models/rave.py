@@ -9,8 +9,10 @@ is ``decode(encode(x))``; ``convert`` conditions a source's content on a
 target's speaker embedding.  The same module serves offline
 (``streaming=False``) and chunked streaming (``streaming=True``, caches
 carried in the conv modules; the speaker encoder always runs offline).
-A fork trained with its speaker encoder (cohort norm, AAM head, latent
-adversary) loads and serves; its training raises in ``train/loop.py``.
+With ``train_speaker_encoder`` the speaker encoder trains with the rest
+(its embedding keeps its gradient; a BatchNorm encoder takes batch
+statistics while ``train_mode`` holds), beside the AAM head and the
+latent adversary (``train/loop.py``).
 
 Options outside this slice raise ``NotImplementedError`` naming the
 ROADMAP item that ports them.
@@ -18,6 +20,7 @@ ROADMAP item that ports them.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -130,6 +133,19 @@ def stream_setup(cfg: RAVEConfig, streaming: bool) -> StreamSetup:
                        streaming=streaming)
 
 
+@contextlib.contextmanager
+def serving_mode(model: "RAVE"):
+    """``model`` with ``train_mode`` off inside the block (the JAX
+    package's ``RAVE(train_mode=False)`` on the same variables), restored
+    after it."""
+    before = model.train_mode
+    model.set_train_mode(False)
+    try:
+        yield model
+    finally:
+        model.set_train_mode(before)
+
+
 class CrossEntropyProjection(nn.Module):
     """Latent -> discrete-unit logits: LayerNorm over the TIME axis (its
     scale and bias have length ``frames``, flax's epsilon 1e-6), a dense
@@ -158,15 +174,19 @@ class CrossEntropyProjection(nn.Module):
 class RAVE(nn.Module):
     """The v2 codec.  Audio ``(B, T, 1)`` <-> latent ``(B, T_z, latent)``.
 
-    Speaker-conditioned configs (``v2_fork``) add the frozen speaker
-    encoder, whose 256-dim embedding is appended to the latent, and the
-    unit cross-entropy projection (``hubert_units``).  Parameters are
-    initialised from PyTorch's global generator (seed it with
-    ``torch.manual_seed``) and placed on ``device``.
+    Speaker-conditioned configs (``v2_fork``) add the speaker encoder,
+    whose 256-dim embedding is appended to the latent (frozen unless
+    ``train_speaker_encoder``), and the unit cross-entropy projection
+    (``hubert_units``).  ``train_mode`` (the JAX module's flag; see
+    :meth:`set_train_mode`) runs a trained BatchNorm speaker encoder on
+    batch statistics; serving and evaluation build with
+    ``train_mode=False``.  Parameters are initialised from PyTorch's
+    global generator (seed it with ``torch.manual_seed``) and placed on
+    ``device``.
     """
 
     def __init__(self, cfg: RAVEConfig, streaming: bool = False,
-                 device="cuda"):
+                 device="cuda", train_mode: bool = True):
         super().__init__()
         check_supported(cfg)
         device = resolve_device(device)
@@ -184,11 +204,11 @@ class RAVE(nn.Module):
                          inverse_parity=self.band_delay % 2, ss=ss)
         self.speaker_encoder = None
         if cfg.speaker_embedding_size:
-            # frozen; built without the stream setup, so offline and
-            # centered even in a streaming model
+            # built without the stream setup, so offline and centered
+            # even in a streaming model
             self.speaker_encoder = SpeakerRAVE(
                 cfg.n_band, cohort_norm=speaker_norm(cfg) == "cohort")
-            self.speaker_encoder.requires_grad_(False)
+            self.speaker_encoder.requires_grad_(cfg.train_speaker_encoder)
         self.ce_projection = None
         if cfg.hubert_units:
             self.ce_projection = CrossEntropyProjection(
@@ -207,7 +227,18 @@ class RAVE(nn.Module):
         if cfg.speaker_embedding_size and cfg.speaker_classes > 0:
             self.speaker_classifier = AAMSpeakerHead(
                 cfg.speaker_embedding_size, cfg.speaker_classes)
+        self.set_train_mode(train_mode)
         self.to(device)
+
+    def set_train_mode(self, on: bool) -> None:
+        """The JAX module's ``train_mode``: a BatchNorm speaker encoder
+        trained from scratch normalises by batch statistics (and advances
+        its running ones) while it holds, by stored ones otherwise."""
+        self.train_mode = on
+        if self.speaker_encoder is not None:
+            self.speaker_encoder.train_bn = (
+                on and self.cfg.train_speaker_encoder
+                and speaker_norm(self.cfg) == "batch")
 
     def pqmf_forward(self, x: torch.Tensor) -> torch.Tensor:
         """Audio ``(B, T, 1)`` -> bands ``(B, M, T/M)``."""
@@ -223,8 +254,11 @@ class RAVE(nn.Module):
         return self.encoder(bands[:, :self.cfg.effective_encoder_data_size()])
 
     def speaker_embedding(self, bands: torch.Tensor) -> torch.Tensor:
-        """Frozen speaker embedding ``(B, 256)`` of all bands, taken
-        without gradient."""
+        """Speaker embedding ``(B, 256)`` of all bands: with
+        ``train_speaker_encoder`` under gradient, else frozen (taken
+        without gradient)."""
+        if self.cfg.train_speaker_encoder:
+            return self.speaker_encoder(bands)
         with torch.no_grad():
             return self.speaker_encoder(bands)
 

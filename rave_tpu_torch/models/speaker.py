@@ -7,8 +7,10 @@ a 256-dim linear head.  Its two norms are BatchNorms on stored statistics
 (the pretrained-checkpoint layout) or, with ``cohort_norm``,
 :class:`CohortNorm` (batch statistics, no stored ones).  Layout is
 channels-first ``(B, C, T)``.  The network always runs offline and
-centered, as in the JAX package.  Forward only: training the encoder and
-the head belongs to ROADMAP A3.
+centered, as in the JAX package.  It trains from scratch with
+``train_speaker_encoder``: the cohort norm is plain tensor arithmetic
+under autograd, and a BatchNorm built with ``train_bn`` normalises by
+the batch's statistics and advances its running ones as flax does.
 """
 
 from __future__ import annotations
@@ -23,22 +25,41 @@ from ..ops.conv import Conv1d
 from .blocks import DilatedUnit, Residual
 
 
-class FrozenBatchNorm(nn.Module):
-    """BatchNorm with stored statistics only (flax ``BatchNorm`` with
-    ``use_running_average=True``, eps 1e-5), over the channel axis 1.
-    It stays in eval mode whatever ``train()`` says."""
+class BatchNorm(nn.Module):
+    """flax's ``BatchNorm`` over the channel axis 1 (eps 1e-5, momentum
+    0.99).  With ``train_bn`` false it normalises by the stored
+    statistics (``use_running_average=True``).  With ``train_bn`` it
+    normalises by the batch's mean and biased variance, taken as
+    ``max(E[x^2] - E[x]^2, 0)`` (flax's ``use_fast_variance``), and moves
+    the stored ones to ``0.99 * r + 0.01 * batch``; the update happens
+    under ``no_grad`` too, as a flax D step's does.  ``F.batch_norm``'s
+    training mode differs (unbiased variance in the update, momentum 0.1).
+    ``train()`` and ``eval()`` change nothing: ``train_bn`` decides."""
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    def __init__(self, channels: int, eps: float = 1e-5,
+                 momentum: float = 0.99):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
+        self.train_bn = False
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, self.eps)
+        if not self.train_bn:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        axes = (0,) + tuple(range(2, x.dim()))
+        mu = x.mean(dim=axes)
+        var = torch.clamp((x * x).mean(dim=axes) - mu * mu, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(m).add_(mu.detach(), alpha=1 - m)
+            self.running_var.mul_(m).add_(var.detach(), alpha=1 - m)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mu.view(shape)) * mul.view(shape) + self.bias.view(shape)
 
 
 class CohortNorm(nn.Module):
@@ -128,12 +149,12 @@ def _max_pool_1d(x: torch.Tensor, window: int = 2) -> torch.Tensor:
 
 class SpeakerRAVE(nn.Module):
     """PQMF bands ``(B, 16, T/16)`` -> embedding ``(B, 256)``.  Its norms
-    are :class:`FrozenBatchNorm` or, with ``cohort_norm``,
-    :class:`CohortNorm`."""
+    are :class:`BatchNorm` (on stored statistics unless ``train_bn``) or,
+    with ``cohort_norm``, :class:`CohortNorm`."""
 
     def __init__(self, n_band: int = 16, cohort_norm: bool = False):
         super().__init__()
-        norm = CohortNorm if cohort_norm else FrozenBatchNorm
+        norm = CohortNorm if cohort_norm else BatchNorm
         self.in_layer = Conv1d(n_band, 128, 7, weight_norm=True)
         self.layer2 = _Stage(128, 256, dilation=1, ratio=4)
         self.layer3 = _Stage(256, 256, dilation=3, ratio=4)
@@ -145,6 +166,18 @@ class SpeakerRAVE(nn.Module):
         self.attn2 = Conv1d(128, 768, 1)
         self.bn5 = norm(1536)
         self.fc6 = nn.Linear(1536, 256)
+
+    @property
+    def train_bn(self) -> bool:
+        """Whether the BatchNorms run on batch statistics (flax's
+        ``SpeakerRAVE.train_bn``); always false with the cohort norm."""
+        return getattr(self.bn5, "train_bn", False)
+
+    @train_bn.setter
+    def train_bn(self, on: bool) -> None:
+        for bn in (self.attn_bn, self.bn5):
+            if isinstance(bn, BatchNorm):
+                bn.train_bn = on
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.in_layer(x)

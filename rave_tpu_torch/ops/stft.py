@@ -6,8 +6,9 @@ the card), as the JAX package leaves it to XLA outside any Pallas
 kernel.  The layout at the boundary stays the JAX package's: time-major
 ``(..., frames, n_fft // 2 + 1)``.  The JAX package's hand-written VJP
 of its framing is a TPU lowering workaround; here autograd
-differentiates ``torch.stft``.  Mel scales (``num_mels``) belong to the
-hybrid slice (ROADMAP A7).
+differentiates ``torch.stft``.  ``mel_filterbank`` is a numpy copy (the
+data pipeline's mel-k-means units read it); mel-scaled spectral
+distances (``num_mels``) belong to the hybrid slice (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -88,6 +89,60 @@ def stft(x: torch.Tensor, n_fft: int, hop_length: int,
         spec = spec / torch.sqrt(torch.sum(window * window))
     return spec.transpose(-1, -2).reshape(*lead, spec.shape[-1],
                                           spec.shape[-2])
+
+
+@lru_cache(maxsize=None)
+def mel_filterbank(sample_rate: int, n_fft: int, n_mels: int,
+                   fmin: float = 0.0, fmax: Optional[float] = None,
+                   htk: bool = False,
+                   norm: Optional[str] = "slaney") -> np.ndarray:
+    """Mel filterbank, (n_mels, n_fft//2+1).
+
+    Defaults reimplement ``librosa.filters.mel`` (slaney scale + slaney
+    norm), used by the reference ``MelScale`` (``rave/core.py:264-275``).
+    ``htk=True, norm=None`` gives the ``torchaudio.transforms
+    .MelSpectrogram`` defaults the reference's hybrid front end uses
+    (``configs/hybrid.gin`` sets neither, so torchaudio's htk/no-norm
+    defaults apply).
+    """
+    fmax = fmax or sample_rate / 2
+
+    if htk:
+        def hz_to_mel(f):
+            return 2595.0 * np.log10(1.0 + np.asarray(f, np.float64) / 700.0)
+
+        def mel_to_hz(m):
+            return 700.0 * (10.0 ** (np.asarray(m, np.float64) / 2595.0) - 1.0)
+    else:
+        def hz_to_mel(f):
+            f = np.asarray(f, dtype=np.float64)
+            mel = f / (200.0 / 3)
+            min_log_hz = 1000.0
+            min_log_mel = min_log_hz / (200.0 / 3)
+            logstep = np.log(6.4) / 27.0
+            return np.where(f >= min_log_hz,
+                            min_log_mel + np.log(np.maximum(f, 1e-10) / min_log_hz) / logstep,
+                            mel)
+
+        def mel_to_hz(m):
+            m = np.asarray(m, dtype=np.float64)
+            f = m * (200.0 / 3)
+            min_log_hz = 1000.0
+            min_log_mel = min_log_hz / (200.0 / 3)
+            logstep = np.log(6.4) / 27.0
+            return np.where(m >= min_log_mel,
+                            min_log_hz * np.exp(logstep * (m - min_log_mel)), f)
+
+    fftfreqs = np.linspace(0, sample_rate / 2, n_fft // 2 + 1)
+    mel_pts = mel_to_hz(np.linspace(hz_to_mel(fmin), hz_to_mel(fmax), n_mels + 2))
+    fdiff = np.diff(mel_pts)
+    ramps = mel_pts[:, None] - fftfreqs[None, :]
+    weights = np.maximum(
+        0, np.minimum(-ramps[:-2] / fdiff[:-1, None], ramps[2:] / fdiff[1:, None]))
+    if norm == "slaney":
+        enorm = 2.0 / (mel_pts[2:n_mels + 2] - mel_pts[:n_mels])
+        weights *= enorm[:, None]
+    return weights.astype(np.float32)
 
 
 def multiscale_stft(x: torch.Tensor, scales: Sequence[int],

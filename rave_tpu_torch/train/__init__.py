@@ -1,1 +1,1 @@
-"""Training: schedules and the train step."""
+"""Training: schedules, the train step, checkpoints and the trainer."""

@@ -2,11 +2,14 @@
 
 Port of ``rave_tpu/train/loop.py`` for the variational latent head:
 
-* three Adam groups with ``betas=(adam_b1, adam_b2)`` and eps 1e-8: ENC
-  (encoder, latent head, unit CE projection), DEC (decoder) and DIS
-  (discriminator); the speaker encoder is frozen.  optax's ``adam`` and
-  ``torch.optim.Adam`` are the same update: bias-corrected moments, eps
-  added outside the square root;
+* Adam groups with ``betas=(adam_b1, adam_b2)`` and eps 1e-8: ENC
+  (encoder, latent head, unit CE projection), DEC (decoder), DIS
+  (discriminator) and, for a speaker-conditioned config, SPK
+  (:func:`spk_group`: the AAM head, the latent adversary and, with
+  ``train_speaker_encoder``, the speaker encoder) at
+  ``speaker_learning_rate``; a frozen speaker encoder is in no group.
+  optax's ``adam`` and ``torch.optim.Adam`` are the same update:
+  bias-corrected moments, eps added outside the square root;
 * the D-or-G choice is a host-side ``if`` on the integer step: D trains
   on every ``update_discriminator_every``-th step once
   ``step >= phase_1_duration``, G on every other step;
@@ -19,7 +22,12 @@ Port of ``rave_tpu/train/loop.py`` for the variational latent head:
   times the beta schedule; its reconstruction loss is
   ``audio_distance_v1`` over the bands and over the audio.  The fork's
   branch draws no random numbers (the decoder sees the detached raw
-  latent, no noise), so its step is deterministic;
+  latent and the speaker embedding, no noise), so its step is
+  deterministic.  With ``speaker_classes`` and ``batch["speaker"]`` it
+  adds the AAM speaker CE (``weights["speaker_ce"]``) and, with
+  ``latent_adversary_weight``, the adversary's CE on the latent through
+  gradient reversal; a BatchNorm speaker encoder in training mode
+  advances its running statistics in D and G steps alike;
 * with ``ema_decay`` the state keeps an exponential moving average of
   the generator's parameters, updated after each G step.
 """
@@ -35,7 +43,7 @@ import torch.nn.functional as F
 from .. import resolve_device
 from ..config import RAVEConfig
 from ..models.discriminators import build_discriminator, member_sub_count
-from ..models.rave import RAVE, speaker_norm
+from ..models.rave import RAVE, serving_mode
 from ..ops import losses as L
 from ..ops.pqmf import _pqmf_kernels
 from . import schedules
@@ -50,23 +58,26 @@ def group_parameters(model: RAVE, group) -> list:
             for p in getattr(model, name).parameters()]
 
 
-def _check_trainable(cfg: RAVEConfig) -> None:
-    """Raise ``NotImplementedError`` for a speaker-conditioned config that
-    trains its speaker encoder or its heads: their losses and optimizer
-    group are not ported (the model itself builds and serves)."""
-    if cfg.speaker_embedding_size and (
-            cfg.train_speaker_encoder or cfg.speaker_classes
-            or cfg.latent_adversary_weight or speaker_norm(cfg) == "cohort"):
-        raise NotImplementedError(
-            "training the speaker encoder (cohort norm, AAM head, latent "
-            "adversary, speaker_learning_rate group) is not ported to "
-            "rave_tpu_torch yet (ROADMAP A3)")
+def spk_group(cfg: RAVEConfig) -> tuple:
+    """The speaker optimizer group (the JAX package's ``_spk_group``): the
+    AAM head with ``speaker_classes``, the latent adversary with
+    ``latent_adversary_weight`` as well, and the speaker encoder with
+    ``train_speaker_encoder``."""
+    g = ()
+    if cfg.speaker_embedding_size > 0 and cfg.speaker_classes > 0:
+        g += ("speaker_classifier",)
+        if cfg.latent_adversary_weight > 0:
+            g += ("latent_adversary",)
+    if cfg.train_speaker_encoder:
+        g += ("speaker_encoder",)
+    return g
 
 
 class TrainState:
-    """Generator, discriminator, integer step, the three optimizers, the
-    latent noise generator (seeded by ``seed``, on ``device``) and, with
-    ``cfg.ema_decay``, the EMA of the generator's parameters.
+    """Generator, discriminator, integer step, the optimizers (``spk_opt``
+    is None when :func:`spk_group` is empty), the latent noise generator
+    (seeded by ``seed``, on ``device``) and, with ``cfg.ema_decay``, the
+    EMA of the generator's parameters.
 
     Modules are initialised from PyTorch's global generator (seed it with
     ``torch.manual_seed``); load converted weights before the first step
@@ -76,7 +87,6 @@ class TrainState:
 
     def __init__(self, cfg: RAVEConfig, device="cuda", step: int = 0,
                  seed: int = 0):
-        _check_trainable(cfg)
         device = resolve_device(device)
         self.cfg = cfg
         self.model = RAVE(cfg, device=device)
@@ -90,6 +100,13 @@ class TrainState:
         self.enc_opt = torch.optim.Adam(self.enc_params, **adam)
         self.dec_opt = torch.optim.Adam(self.dec_params, **adam)
         self.dis_opt = torch.optim.Adam(self.disc.parameters(), **adam)
+        self.spk_params = group_parameters(self.model, spk_group(cfg))
+        self.spk_opt = None
+        if self.spk_params:
+            self.spk_opt = torch.optim.Adam(
+                self.spk_params,
+                **{**adam, "lr": cfg.speaker_learning_rate
+                   or cfg.learning_rate})
         self.ema: Optional[dict] = None
         self.reset_ema()
 
@@ -159,16 +176,47 @@ def _gan_terms(cfg, disc, x, y):
     return loss_dis, loss_adv, _feature_matching(cfg, feats_real, feats_fake)
 
 
+def _class_ce(logits: torch.Tensor, labels: torch.Tensor,
+              classes: int) -> torch.Tensor:
+    oh = F.one_hot(labels, classes).to(logits.dtype)
+    return -torch.mean(torch.sum(F.log_softmax(logits, dim=-1) * oh, -1))
+
+
+def _accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return torch.mean((torch.argmax(logits, -1) == labels).float())
+
+
 def unit_ce_terms(model: RAVE, z_pre: torch.Tensor, units: torch.Tensor,
                   num_units: int):
     """Unit cross-entropy and accuracy of the latent's projection,
     interpolated to the units' frame count."""
     logits = model.project_units(z_pre, units.shape[1])
-    logp = F.log_softmax(logits, dim=-1)
-    oh = F.one_hot(units, num_units).to(logp.dtype)
-    ce = -torch.mean(torch.sum(logp * oh, dim=-1))
-    acc = torch.mean((torch.argmax(logits, -1) == units).float())
-    return ce, acc
+    return _class_ce(logits, units, num_units), _accuracy(logits, units)
+
+
+def reverse_gradient(z: torch.Tensor, lam: float) -> torch.Tensor:
+    """``z`` forward; backward scales the gradient by ``-lam``."""
+    return ((1 + lam) * z).detach() - lam * z
+
+
+def speaker_terms(cfg: RAVEConfig, model: RAVE, z_pre: torch.Tensor,
+                  emb: torch.Tensor, speaker: torch.Tensor) -> dict:
+    """The speaker losses of a batch with ids ``speaker`` ``(B,)``: the
+    AAM CE of the embedding (target-class margin) and the accuracy of the
+    margin-free logits; with ``latent_adversary_weight`` the adversary's
+    CE and accuracy on the content latent ``z_pre`` through
+    :func:`reverse_gradient`, so that the encoder is pushed to remove what
+    the adversary reads."""
+    k = cfg.speaker_classes
+    out = {"spk_ce": _class_ce(model.classify_speaker(emb, speaker),
+                               speaker, k),
+           "spk_acc": _accuracy(model.classify_speaker(emb), speaker)}
+    if cfg.latent_adversary_weight > 0:
+        logits = model.adversary_logits(
+            reverse_gradient(z_pre, cfg.latent_adversary_weight))
+        out["adv_ce"] = _class_ce(logits, speaker, k)
+        out["adv_acc"] = _accuracy(logits, speaker)
+    return out
 
 
 def receptive_field_frames(cfg: RAVEConfig) -> tuple[int, int]:
@@ -202,9 +250,10 @@ def _forward_losses(cfg: RAVEConfig, model: RAVE, batch: Mapping,
                     eps: Optional[torch.Tensor] = None,
                     generator: Optional[torch.Generator] = None) -> dict:
     """Generator-side forward: every loss term but the GAN's, the latent
-    regulariser (0 for the fork) and the cropped real and fake audio.
-    The upstream branch samples the latent with ``eps``, or draws it
-    from ``generator``."""
+    regulariser (0 for the fork), the speaker terms (``aux``, see
+    :func:`speaker_terms`) and the cropped real and fake audio.  The
+    upstream branch samples the latent with ``eps``, or draws it from
+    ``generator``."""
     x = batch["x"]
     bands_x = model.pqmf_forward(x)
     bands_xp = (model.pqmf_forward(batch["x_perturbed"])
@@ -215,10 +264,15 @@ def _forward_losses(cfg: RAVEConfig, model: RAVE, batch: Mapping,
     if cfg.hubert_units > 0 and "units" in batch:
         ce, _ = unit_ce_terms(model, z_pre, batch["units"], cfg.hubert_units)
 
+    aux = {}
     if cfg.speaker_embedding_size:
-        # the decoder sees the detached latent: the encoder trains by CE
-        z_dec = model.condition(z_pre.detach(),
-                                model.speaker_embedding(bands_x))
+        emb = model.speaker_embedding(bands_x)
+        if cfg.speaker_classes > 0 and "speaker" in batch:
+            aux = speaker_terms(cfg, model, z_pre, emb, batch["speaker"])
+        # the decoder sees the detached latent (the encoder trains by the
+        # CE terms) and the embedding as it is (a trained speaker encoder
+        # learns from the reconstruction and GAN terms too)
+        z_dec = model.condition(z_pre.detach(), emb)
     else:
         z_dec, reg = model.reparametrize(z_pre, eps, generator)
     bands_y = model.decode_bands(z_dec)
@@ -249,7 +303,7 @@ def _forward_losses(cfg: RAVEConfig, model: RAVE, batch: Mapping,
             "fullband_spectral_distance": L.audio_distance_v1(
                 x_full[..., 0], y_full[..., 0], cfg.stft_scales,
                 cfg.log_epsilon)}
-    return dict(x=x_full, y=y_full, ce=ce, reg=reg, dists=dists)
+    return dict(x=x_full, y=y_full, ce=ce, reg=reg, dists=dists, aux=aux)
 
 
 # ----------------------------------------------------------------------
@@ -309,7 +363,20 @@ def _generator_step(cfg: RAVEConfig, state: TrainState, batch,
         for k, v in loss_terms.items():
             total = total + v * cfg.weights.get(k, 1.0)
         total = total + out["ce"]
-        params = state.enc_params + state.dec_params
+        metrics = {f"loss_{k}": v for k, v in loss_terms.items()}
+        metrics["loss_ce"] = out["ce"]
+        aux = out["aux"]
+        if "spk_ce" in aux:
+            total = total + aux["spk_ce"] * cfg.weights.get("speaker_ce", 1.0)
+            metrics["loss_speaker_ce"] = aux["spk_ce"]
+            metrics["speaker_accuracy"] = aux["spk_acc"]
+        if "adv_ce" in aux:
+            # weight 1: the reversal's -lambda scales the encoder's share,
+            # the adversary head trains at full strength
+            total = total + aux["adv_ce"]
+            metrics["loss_latent_adversary"] = aux["adv_ce"]
+            metrics["latent_adversary_accuracy"] = aux["adv_acc"]
+        params = state.enc_params + state.dec_params + state.spk_params
         grads = torch.autograd.grad(total, params, allow_unused=True)
     # a parameter the loss does not reach gets a zero gradient, so Adam
     # moves it as optax does (torch's Adam skips a None gradient)
@@ -317,9 +384,9 @@ def _generator_step(cfg: RAVEConfig, state: TrainState, batch,
         p.grad = torch.zeros_like(p) if g is None else g
     state.enc_opt.step()
     state.dec_opt.step()
+    if state.spk_opt is not None:
+        state.spk_opt.step()
     state.update_ema()
-    metrics = {f"loss_{k}": v for k, v in loss_terms.items()}
-    metrics["loss_ce"] = out["ce"]
     metrics["loss_gen_total"] = total
     return _fill_metrics(cfg, metrics)
 
@@ -367,11 +434,12 @@ def make_eval_step(cfg: RAVEConfig):
     pre-regularisation latent's channels ``(B, T_z, C / 2)`` (the
     posterior mean, which ``latent_stats.fit_latent_pca`` takes).  With
     ``units`` in the batch and unit CE in the config, also
-    ``val_unit_ce`` and ``val_unit_accuracy``."""
+    ``val_unit_ce`` and ``val_unit_accuracy``.  The model runs with
+    ``train_mode`` off, as the JAX eval step builds it."""
 
     def eval_step(state: TrainState, batch: Mapping):
         model, x = state.model, batch["x"]
-        with torch.no_grad():
+        with torch.no_grad(), serving_mode(model):
             # the forward, its encoder pass shared with z_mean
             bands = model.pqmf_forward(x)
             z_pre = model.encode_input(bands)

@@ -18,11 +18,12 @@ import torch
 from rave_tpu.config import build_config as jbuild
 from rave_tpu.models.rave import RAVE as JRAVE
 from rave_tpu.models.speaker import SpeakerRAVE as JSpeaker
+from rave_tpu.train import loop as jloop
 from rave_tpu_torch.config import build_config
 from rave_tpu_torch.convert import load_flax_params
 from rave_tpu_torch.models.rave import RAVE
 from rave_tpu_torch.models.speaker import SpeakerRAVE
-from rave_tpu_torch.train.loop import TrainState
+from rave_tpu_torch.train.loop import TrainState, spk_group
 
 TINY = ["capacity=4", "n_signal=8192", "ratios=[2,2]",
         "dilations=[[1,3],[1,3]]"]
@@ -128,9 +129,19 @@ def test_fork_converter_needs_batch_stats_and_uses_every_leaf():
                                   ["speaker_classes=8",
                                    "latent_adversary_weight=0.1"]])
 def test_speaker_training_options_raise(over):
-    """The model builds and serves; its train step raises (its losses and
-    optimizer group are not ported)."""
+    """(Named for the refusal it once pinned.)  The train state of each
+    speaker-training option builds, and its SPK optimizer group holds the
+    parameters of exactly the modules the JAX package's ``_spk_group``
+    names."""
     cfg = build_config(["v2_fork"], TINY + over)
-    RAVE(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        TrainState(cfg, device="cpu")
+    state = TrainState(cfg, device="cpu")
+    names = jloop._spk_group(jbuild(["v2_fork"], TINY + over))
+    assert spk_group(cfg) == names
+    want = [p for n in names for p in getattr(state.model, n).parameters()]
+    assert [id(p) for p in state.spk_params] == [id(p) for p in want]
+    assert (state.spk_opt is None) == (not names)
+    if names:
+        assert state.spk_opt.param_groups[0]["params"] == state.spk_params
+    trained = "speaker_encoder" in names
+    assert all(p.requires_grad == trained
+               for p in state.model.speaker_encoder.parameters())
