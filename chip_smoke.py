@@ -123,6 +123,31 @@ the last line:
    table row 1 equal to a live ``VoiceConverter`` of the same checkpoint,
    and ``forward.pt2`` to the live stream (<= 2e-4); ``cli eval`` writes
    32 points from 8 speakers.  ``_smoke/`` is removed after it.
+11. pitch: the fork's f0-conditioned preset (``v2_fork`` + ``pitch``,
+   ``fused_kernels=true``, random weights from seed 0) on four synthetic
+   speakers whose f0 rises and falls by 10 %.  (a) ``RAVE.convert`` of
+   4 sources x 131072 against 4 targets with YIN f0: B1 16 launches,
+   fused vs plain and card vs CPU (1 x 65536) within 2e-4; YIN f0 card
+   vs CPU (the same voiced frames, f0 rtol 1e-4) and the f0 feature
+   (1e-5 in log-f0 units); CUDA-event median of 10 calls, peak memory,
+   a profile and the f0 feature's share of the call's device time.  (b)
+   A random-weight FCPE checkpoint in torchfcpe's layout under
+   ``_smoke/`` (its output bias a bump at 220 Hz): ``fcpe_f0`` card vs
+   CPU, a ``convert`` with ``pitch_estimator=fcpe`` (B1 16), ``cli
+   speaker_stats --pitch_ckpt`` over 4 speakers x 2 clips on the card
+   and on the CPU (JSON rtol 1e-4), ``cli validate_assets --fcpe_ckpt
+   --out _smoke/assets.md`` whose FCPE row passes.  (c) One D and three
+   G steps at batch 8 x 131072 with the batch's speaker statistics: B1,
+   B2, B3 launched 16, 3, 0 times per D step and 16, 3, 3 per G step,
+   the metric names, finite values; D and G ms, peak memory; one G step
+   at 4 x 65536 card vs CPU (one thread): losses and ENC/DEC gradient
+   norms rtol 1e-3.  (d) ``VoiceConverter`` with f0 over 32 chunks of
+   4096 (median and p80 against the 92.9 ms a chunk lasts, no B1), card
+   vs CPU over 8 chunks within 2e-4; ``serialize``, and the reloaded
+   ``convert_pg.pt2`` over 8 chunks against the live in-graph step
+   within 2e-4.  (e) ``measure_receptive_field`` of the conv stacks on
+   the card equal to the CPU's, inside ``receptive_field_frames``' crop.
+   ``_smoke/`` is removed after it.
 
 Before the last line it prints the ``nvidia-smi`` line and one JSON
 object ``{"kernels": [...]}``; the last line is
@@ -1623,6 +1648,465 @@ def phase_export_run(torch, np, run, db, wavs, card, device="cuda"):
           "phase_seconds": time.perf_counter() - t_phase})
 
 
+# pitch: the fork's f0-conditioned preset (v2_fork + pitch) at full width
+PITCH_STACK = ["v2_fork", "pitch"]
+PITCH_SPEAKERS, PITCH_CLIP = 4, 131072
+F0_RTOL = 1e-4           # f0 card vs CPU where both are voiced
+LOG_F0_TOL = 1e-5        # the f0 feature card vs CPU, in log-f0 units
+STATS_RTOL = 1e-4        # the speaker_stats JSON card vs CPU
+
+
+def glides(np, n, T, seed=SEED):
+    """``n`` synthetic speakers ``(n, T)``: five harmonics of an f0 that
+    rises and falls by 10 % every 2 s (a speaker's intonation), distinct
+    registers, plus noise.  A steady tone would give per-utterance
+    log-f0 statistics a std near 1e-3, which the feature divides by."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(T) / 44100
+    out = []
+    for i in range(n):
+        f0 = 90.0 * 1.6 ** i * rng.uniform(0.97, 1.03)
+        phase = 2 * np.pi * f0 * (t + 0.1 * np.sin(np.pi * t) / np.pi)
+        x = sum(np.sin(h * phase + rng.uniform(0, 6)) / h for h in range(1, 6))
+        out.append(0.2 * x + 0.02 * rng.standard_normal(T))
+    return np.stack(out).astype(np.float32)
+
+
+def f0_stats(np, x, sr):
+    """Per-item log-f0 median and std of ``x`` ``(B, T)`` by the numpy
+    YIN: what ``speaker_stats`` writes for a speaker of one item."""
+    from rave_tpu_torch.data.pitch import yin_f0
+    med, std = [], []
+    for item in x:
+        f0 = yin_f0(item, sr)
+        v = np.log(f0[f0 > 0])
+        med.append(np.median(v))
+        std.append(max(np.std(v), 1e-3))
+    return np.asarray(med, np.float32), np.asarray(std, np.float32)
+
+
+def hold_f0(np, got, want, what):
+    """f0 card vs CPU: the voiced masks equal, f0 within ``F0_RTOL`` where
+    voiced; returns the largest relative difference."""
+    check(np.array_equal(got > 0, want > 0),
+          f"{what}: voicing card vs cpu differs in "
+          f"{int(((got > 0) != (want > 0)).sum())} frames")
+    v = want > 0
+    check(v.any(), f"{what}: no voiced frame")
+    rel = float((np.abs(got[v] - want[v]) / want[v]).max())
+    check(rel <= F0_RTOL, f"{what}: f0 card vs cpu rel {rel}")
+    return rel
+
+
+def fcpe_checkpoint(torch, np, path):
+    """A random-weight FCPE checkpoint in torchfcpe's layout (``model``:
+    ``input_stack.*``, ``net.encoder_layers.*.conformer.net.*``, the
+    weight-normed ``output_proj``).  The output layer's weights are
+    scaled by 0.4 and its bias is a bump over the bins around 220 Hz, so
+    that the decode is well posed (neighbouring bins) and
+    ``validate_assets``' 220 Hz check has something to find: it shows
+    the reader, the network and the check run, not that FCPE tracks
+    pitch."""
+    from rave_tpu_torch.models import pitch_fcpe as F
+    torch.manual_seed(SEED)
+    m = F.FCPE()
+    k = torch.arange(F.OUT_DIMS, dtype=torch.float32)
+    k0 = int(np.argmin(np.abs(F.cent_table() - F.f0_to_cent(220.0))))
+    with torch.no_grad():
+        m.out.weight.mul_(0.4)
+        m.out.bias.copy_(8 * torch.exp(-0.5 * ((k - k0) / 8) ** 2) - 4)
+    p = m.state_dict()
+    sd = {"input_stack.0.weight": p["in0.weight"],
+          "input_stack.0.bias": p["in0.bias"],
+          "input_stack.1.weight": p["in_gn.weight"],
+          "input_stack.1.bias": p["in_gn.bias"],
+          "input_stack.3.weight": p["in1.weight"],
+          "input_stack.3.bias": p["in1.bias"],
+          "norm.weight": p["norm.weight"], "norm.bias": p["norm.bias"],
+          "output_proj.weight_v": p["out.weight"],
+          "output_proj.weight_g": p["out.weight"].norm(dim=1, keepdim=True),
+          "output_proj.bias": p["out.bias"]}
+    for i in range(F.N_LAYERS):
+        base, src = f"net.encoder_layers.{i}.conformer.net", f"layers.{i}"
+        sd.update({f"{base}.0.weight": p[f"{src}.ln.weight"],
+                   f"{base}.0.bias": p[f"{src}.ln.bias"],
+                   f"{base}.2.weight": p[f"{src}.pw1.weight"][..., None],
+                   f"{base}.2.bias": p[f"{src}.pw1.bias"],
+                   f"{base}.4.conv.weight": p[f"{src}.dw.weight"],
+                   f"{base}.4.conv.bias": p[f"{src}.dw.bias"],
+                   f"{base}.6.weight": p[f"{src}.pw2.weight"][..., None],
+                   f"{base}.6.bias": p[f"{src}.pw2.bias"]})
+    torch.save({"model": sd}, path)
+    return m
+
+
+# the port's CLI in a subprocess with TF32 off, as in this script
+CLI_TF32_OFF = ("import sys, torch; "
+                "torch.backends.cuda.matmul.allow_tf32 = False; "
+                "torch.backends.cudnn.allow_tf32 = False; "
+                "from rave_tpu_torch.cli import main; main(sys.argv[1:])")
+
+
+def run_cli(*args, timeout=600):
+    """The port's CLI (``rave_tpu_torch.cli.main``) in a subprocess with
+    TF32 off, so that a card run compares with a CPU run in float32;
+    fails the run on a non-zero exit.  Returns its stdout and seconds."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", CLI_TF32_OFF, *args],
+                       capture_output=True, text=True, timeout=timeout)
+    check(r.returncode == 0, f"cli {args[0]} exited {r.returncode}: "
+          f"{r.stdout[-1000:]} {r.stderr[-2000:]}")
+    return r.stdout, time.perf_counter() - t0
+
+
+def phase_pitch(torch, np, KERNELS, device="cuda"):
+    """The f0-conditioned fork (see the module docstring, phase 11).
+    Returns B1's launches per ``convert`` and each kernel's per D and G
+    step."""
+    from pathlib import Path
+    from rave_tpu_torch.config import build_config
+    from rave_tpu_torch.data.audio_io import save_wav
+    from rave_tpu_torch.export.voice_conversion import VoiceConverter
+    from rave_tpu_torch.models import pitch_fcpe as F
+    from rave_tpu_torch.models.rave import RAVE
+    from rave_tpu_torch.ops.pitch import pitch_feature, yin_f0
+    from rave_tpu_torch.train import loop, schedules
+    from rave_tpu_torch.utils.receptive_field import measure_receptive_field
+
+    counts = lambda: {k.name: k.launches for k in KERNELS}  # noqa: E731
+
+    def reset():
+        for k in KERNELS:
+            k.launches = 0
+
+    t_phase = time.perf_counter()
+    root = Path(SMOKE_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir()
+    cfg = build_config(PITCH_STACK, ["fused_kernels=true"])
+    sr = cfg.sampling_rate
+    torch.manual_seed(SEED)
+    model = RAVE(cfg, device=device).eval()
+    state = model.state_dict()
+    cpu_state = {k: v.cpu() for k, v in state.items()}
+    cpu = RAVE(cfg, device="cpu").eval()
+    cpu.load_state_dict(cpu_state)
+    speakers = glides(np, PITCH_SPEAKERS, 2 * PITCH_CLIP)
+    src = torch.tensor(speakers[:, :PITCH_CLIP, None], device=device)
+    tgt = torch.tensor(np.roll(speakers, -1, axis=0)[:, PITCH_CLIP:, None],
+                       device=device)
+    frames = PITCH_CLIP // cfg.total_ratio()
+
+    # (a) offline conversion, YIN f0
+    with torch.inference_mode():
+        plain = RAVE(build_config(PITCH_STACK, ["fused_kernels=false"]),
+                     device=device).eval()
+        plain.load_state_dict(state)
+        reset()
+        y = model.convert(src, tgt)
+        torch.cuda.synchronize()
+        launches = counts()
+        check(launches == {"residual_unit": 16, "ci1_conv_forward": 0,
+                           "ci1_conv_dx": 0},
+              f"pitch convert launches {launches}")
+        check(tuple(y.shape) == tuple(src.shape), f"pitch convert {y.shape}")
+        check(bool(torch.isfinite(y).all()), "pitch convert not finite")
+        plain_err = (y - plain.convert(src, tgt)).abs().max().item()
+        check(plain_err <= OFFLINE_TOL, f"pitch convert fused vs plain: "
+              f"{plain_err}")
+        del plain
+        f0_card = yin_f0(src[..., 0], sr).cpu().numpy()
+        f0_cpu = yin_f0(src[..., 0].cpu(), sr).numpy()
+        f0_rel = hold_f0(np, f0_card, f0_cpu, "yin")
+        feat = pitch_feature(src, frames, sr).cpu().numpy()
+        feat_cpu = pitch_feature(src.cpu(), frames, sr).numpy()
+        std = f0_stats(np, speakers[:, :PITCH_CLIP], sr)[1]
+        feat_err = float((np.abs(feat - feat_cpu)
+                          * std[:, None, None]).max())
+        check(feat_err <= LOG_F0_TOL, f"pitch feature card vs cpu: "
+              f"{feat_err} (log-f0 units)")
+        check(np.abs(feat).max() > 0.5, "pitch feature is flat")
+        xs, ts = src[:1, :65536], tgt[:1, :65536]
+        cpu_err = (model.convert(xs, ts).cpu()
+                   - cpu.convert(xs.cpu(), ts.cpu())).abs().max().item()
+        check(cpu_err <= CPU_TOL, f"pitch convert card vs cpu: {cpu_err}")
+        torch.cuda.reset_peak_memory_stats()
+        times = [cuda_ms(torch, lambda: model.convert(src, tgt), iters=1,
+                         warmup=0) for _ in range(10)]
+        peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+        prof = device_profile(torch, lambda: model.convert(src, tgt),
+                              names=("residual_unit_kernel",))
+        feat_ms = device_ms(torch, lambda: pitch_feature(src, frames, sr))
+    prof["share"] = {n: ms / prof["device_ms"]
+                     for n, ms in prof["named_ms"].items()}
+    prof["share"]["pitch_feature"] = feat_ms / prof["device_ms"]
+    convert_ms = statistics.median(times)
+    audio_s = PITCH_SPEAKERS * PITCH_CLIP / sr
+    emit({"phase": "pitch", "step": "convert", "config": "v2_fork+pitch",
+          "batch": [PITCH_SPEAKERS, PITCH_CLIP, 1], "launches": launches,
+          "max_abs_err_vs_plain": plain_err, "max_abs_err_vs_cpu": cpu_err,
+          "f0_rel_err_vs_cpu": f0_rel, "f0_frames": list(f0_card.shape),
+          "voiced_share": float((f0_card > 0).mean()),
+          "feature_err_vs_cpu_log_f0": feat_err,
+          "batch_ms": convert_ms, "rtf": convert_ms / 1e3 / audio_s,
+          "batch_ms_all": times, "peak_mem_mb": peak_mb,
+          "pitch_feature_device_ms": feat_ms, "profile": prof})
+    convert_launches = launches["residual_unit"]
+
+    # (b) FCPE from a random-weight checkpoint in torchfcpe's layout
+    ckpt = str(root / "fcpe_random.pt")
+    fcpe_checkpoint(torch, np, ckpt)
+    fc, fc_cpu = F.get_fcpe(ckpt, device), F.get_fcpe(ckpt, "cpu")
+    with torch.inference_mode():
+        ff_card = F.fcpe_f0(fc, src[..., 0], sr, out_frames=frames)
+        ff_cpu = F.fcpe_f0(fc_cpu, src[..., 0].cpu(), sr, out_frames=frames)
+        fcpe_ms = device_ms(torch, lambda: F.fcpe_f0(fc, src[..., 0], sr),
+                            iters=5)
+    fcpe_rel = hold_f0(np, ff_card.cpu().numpy(), ff_cpu.numpy(), "fcpe")
+    fcfg = build_config(PITCH_STACK, ["fused_kernels=true",
+                                      "pitch_estimator=fcpe",
+                                      f"pitch_ckpt={ckpt}"])
+    fmodel = RAVE(fcfg, device=device).eval()
+    fmodel.load_state_dict(state)
+    with torch.inference_mode():
+        reset()
+        yf = fmodel.convert(src, tgt)
+        torch.cuda.synchronize()
+        check(counts()["residual_unit"] == 16, f"fcpe convert {counts()}")
+        check(bool(torch.isfinite(yf).all()), "fcpe convert not finite")
+        fcpe_vs_yin = (yf - y).abs().max().item()
+        check(fcpe_vs_yin > 0, "fcpe convert equals the YIN one")
+        fcpe_convert_ms = statistics.median(
+            [cuda_ms(torch, lambda: fmodel.convert(src, tgt), iters=1,
+                     warmup=0) for _ in range(5)])
+    del fmodel, yf, y
+    corpus = glides(np, PITCH_SPEAKERS, 2 * PITCH_CLIP, seed=SEED + 5)
+    for s in range(PITCH_SPEAKERS):
+        d = root / "audio" / f"spk{s}"
+        d.mkdir(parents=True)
+        for k in range(2):
+            save_wav(str(d / f"{k}.wav"),
+                     corpus[s, k * PITCH_CLIP:(k + 1) * PITCH_CLIP], sr)
+    db = str(root / "db")
+    seconds = {}
+    _, seconds["preprocess"] = run_cli(
+        "preprocess", "--input_path", str(root / "audio"), "--output_path",
+        db, "--num_workers", "4")
+    stats = {}
+    for dev in (device, "cpu"):
+        out = root / f"stats_{dev}.json"
+        _, seconds[f"speaker_stats_{dev}"] = run_cli(
+            "speaker_stats", "--db_path", db, "--pitch_ckpt", ckpt,
+            "--out", str(out), "--device", dev)
+        stats[dev] = json.loads(out.read_text())
+    check(sorted(stats[device]) == [f"spk{s}" for s in range(PITCH_SPEAKERS)],
+          f"speaker_stats speakers {sorted(stats[device])}")
+    stats_rel = max(abs(stats[device][n][k] - stats["cpu"][n][k])
+                    / max(abs(stats["cpu"][n][k]), 1e-12)
+                    for n in stats["cpu"] for k in ("mean", "std"))
+    check(stats_rel <= STATS_RTOL, f"speaker_stats card vs cpu: {stats_rel}")
+    out, seconds["validate_assets"] = run_cli(
+        "validate_assets", "--fcpe_ckpt", ckpt, "--out",
+        str(root / "assets.md"), "--device", device)
+    check("fcpe (pitch teacher): pass" in out,
+          f"validate_assets: {out[-1500:]}")
+    emit({"phase": "pitch", "step": "fcpe", "f0_rel_err_vs_cpu": fcpe_rel,
+          "voiced_share": float((ff_cpu.numpy() > 0).mean()),
+          "fcpe_f0_device_ms": fcpe_ms, "convert_batch_ms": fcpe_convert_ms,
+          "fcpe_vs_yin_max_abs": fcpe_vs_yin, "speaker_stats": stats[device],
+          "speaker_stats_rel_err_vs_cpu": stats_rel,
+          "validate_assets": [ln for ln in out.splitlines()
+                              if ln.startswith("fcpe")],
+          "seconds": seconds})
+
+    # (c) training through the speaker-statistics route
+    torch.manual_seed(SEED)
+    tstate = loop.TrainState(cfg, device=device, step=cfg.phase_1_duration)
+    step_fn = loop.make_train_step(cfg)
+    x8 = glides(np, TRAIN_BATCH, cfg.n_signal, seed=SEED + 6)
+    med, std = f0_stats(np, x8, sr)
+    units = np.random.default_rng(SEED + 7).integers(0, 100,
+                                                     (TRAIN_BATCH, 148))
+    batch = {"x": torch.tensor(x8[:, :, None], device=device),
+             "units": torch.tensor(units, device=device),
+             "f0_median": torch.tensor(med, device=device),
+             "f0_std": torch.tensor(std, device=device)}
+    torch.cuda.reset_peak_memory_stats()
+    cycle, step_ms = [], {"D": [], "G": []}
+    for _ in range(4):
+        kind = "D" if schedules.is_discriminator_step(tstate.step, cfg) \
+            else "G"
+        reset()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        metrics = step_fn(tstate, batch)
+        t1.record()
+        t1.synchronize()
+        step_ms[kind].append(t0.elapsed_time(t1))
+        got = counts()
+        want = {"residual_unit": 16, "ci1_conv_forward": 3,
+                "ci1_conv_dx": 3 if kind == "G" else 0}
+        check(got == want, f"pitch train {kind} launches {got}")
+        values = {k: float(v) for k, v in metrics.items()}
+        check(sorted(values) == TRAIN_METRICS,
+              f"pitch train metric names {sorted(values)}")
+        check(all(np.isfinite(v) for v in values.values()),
+              f"pitch train {kind} metrics not finite: {values}")
+        cycle.append({"kind": kind, "launches": got, "metrics": values})
+    check([c["kind"] for c in cycle] == ["D", "G", "G", "G"],
+          f"pitch train cycle {[c['kind'] for c in cycle]}")
+    # a timed cycle after the checked one (which warmed cuDNN up)
+    for _ in range(4):
+        kind = "D" if schedules.is_discriminator_step(tstate.step, cfg) \
+            else "G"
+        step_ms[kind].append(cuda_ms(torch, lambda: step_fn(tstate, batch),
+                                     iters=1, warmup=0))
+    train_peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    del tstate, batch
+    # one G step at 4 x 65536 on the card and on the CPU (one thread)
+    short = build_config(PITCH_STACK, ["fused_kernels=true",
+                                       "n_signal=65536", "batch_size=4"])
+    g_step = short.phase_1_duration + 1
+    torch.manual_seed(SEED + 1)
+    card = loop.TrainState(short, device=device, step=g_step)
+    cpu_t = loop.TrainState(short, device="cpu", step=g_step)
+    cpu_t.model.load_state_dict({k: v.cpu() for k, v in
+                                 card.model.state_dict().items()})
+    cpu_t.disc.load_state_dict({k: v.cpu() for k, v in
+                                card.disc.state_dict().items()})
+    xs4 = glides(np, 4, short.n_signal, seed=SEED + 8)
+    m4, s4 = f0_stats(np, xs4, sr)
+    sb = {"x": torch.tensor(xs4[:, :, None]),
+          "units": torch.tensor(np.random.default_rng(SEED + 9).integers(
+              0, 100, (4, 74))),
+          "f0_median": torch.tensor(m4), "f0_std": torch.tensor(s4)}
+    short_fn = loop.make_train_step(short)
+    m_card = {k: float(v) for k, v in short_fn(
+        card, {k: v.to(device) for k, v in sb.items()}).items()}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        m_cpu = {k: float(v) for k, v in short_fn(cpu_t, sb).items()}
+    finally:
+        torch.set_num_threads(threads)
+    rel = {k: abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12)
+           for k in m_cpu}
+
+    def norms(st):
+        return {g: float(torch.sqrt(sum((p.grad.double() ** 2).sum()
+                                        for p in ps)))
+                for g, ps in (("enc", st.enc_params), ("dec", st.dec_params))}
+
+    n_card, n_cpu = norms(card), norms(cpu_t)
+    rel.update({f"grad_norm_{g}": abs(n_card[g] - n_cpu[g]) / n_cpu[g]
+                for g in n_cpu})
+    check(max(rel.values()) <= TRAIN_RTOL, f"pitch train card vs cpu: {rel}")
+    del card, cpu_t
+    d_ms, g_ms = step_ms["D"][-1], statistics.median(step_ms["G"][3:])
+    emit({"phase": "pitch", "step": "train", "config": "v2_fork+pitch",
+          "batch": [TRAIN_BATCH, cfg.n_signal, 1], "route": "speaker_stats",
+          "cycle": cycle, "d_step_ms": d_ms, "g_step_ms": g_ms,
+          "step_ms_all": step_ms,
+          "audio_s_per_s": 4 * TRAIN_BATCH * cfg.n_signal / sr
+          / ((d_ms + 3 * g_ms) / 1e3),
+          "peak_mem_mb": train_peak_mb,
+          "card_vs_cpu": {"rel_err": rel, "grad_norms_card": n_card,
+                          "grad_norms_cpu": n_cpu}})
+    train_launches = {"D": cycle[0]["launches"], "G": cycle[1]["launches"]}
+
+    # (d) streamed conversion with f0, live and exported
+    vc = VoiceConverter(cfg, state, chunk_size=VC_CHUNK, device=device)
+    vc.speaker_table = vc.table_from_clips(list(speakers))
+    vc.set_speaker(1)
+    request = speakers[0]
+    chunks = [request[i:i + VC_CHUNK]
+              for i in range(0, 32 * VC_CHUNK, VC_CHUNK)]
+    for c in chunks[:4]:   # warm-up
+        vc.forward(c)
+    vc.reset()
+    reset()
+    chunk_ms, outs = [], []
+    for c in chunks:
+        t0 = time.perf_counter()
+        outs.append(vc.forward(c))   # returns numpy: synchronised
+        chunk_ms.append((time.perf_counter() - t0) * 1e3)
+    stream_launches = counts()
+    check(stream_launches["residual_unit"] == 0,
+          f"pitch stream launches {stream_launches}")
+    check(bool(np.isfinite(np.concatenate(outs)).all()),
+          "pitch stream not finite")
+    cpu_vc = VoiceConverter(cfg, cpu_state, chunk_size=VC_CHUNK,
+                            speaker_table=vc.speaker_table, device="cpu")
+    cpu_vc.set_speaker(1)
+    vc.reset()
+    stream_err = 0.0
+    for c in chunks[:8]:
+        stream_err = max(stream_err,
+                         float(np.abs(vc.forward(c) - cpu_vc.forward(c)).max()))
+    check(stream_err <= CPU_TOL, f"pitch stream card vs cpu: {stream_err}")
+    check(len(vc._logf0) == len(cpu_vc._logf0) > 0,
+          "pitch stream reservoirs differ")
+    del cpu_vc
+    t0 = time.perf_counter()
+    out_dir = vc.serialize(str(root / "export"))
+    serialize_s = time.perf_counter() - t0
+    n = len(vc.stream.init_caches)
+    carry, _ = manifest_caches(torch, np, out_dir / "convert_pg_manifest.txt",
+                               out_dir / "convert_pg_cache_init.bin", n + 1,
+                               device)
+    prog = torch.export.load(out_dir / "convert_pg.pt2").module()
+    live = [c.clone() for c in vc.stream.init_caches]
+    caches, tail = carry[:n], carry[n]
+    live_tail = torch.zeros_like(tail)
+    emb = torch.tensor(vc.current_embedding(), device=device)
+    pg_err = 0.0
+    with torch.no_grad():
+        for c in chunks[:8]:
+            xc = torch.tensor(c.reshape(1, -1, 1), device=device)
+            (yp, tail), caches = prog(caches, tail, xc, emb)
+            (yl, live_tail), live = vc._convert_pg(live, live_tail, xc, emb)
+            pg_err = max(pg_err, (yp - yl).abs().max().item())
+            check(bool(torch.isfinite(yp).all()), "convert_pg not finite")
+    check(pg_err <= EXPORT_TOL, f"convert_pg.pt2 vs live: {pg_err}")
+    emit({"phase": "pitch", "step": "stream", "chunk": VC_CHUNK,
+          "chunks": len(chunk_ms), "launches": stream_launches,
+          "chunk_ms_median": statistics.median(chunk_ms),
+          "chunk_ms_p80": float(np.percentile(chunk_ms, 80)),
+          "chunk_ms_max": max(chunk_ms),
+          "chunk_ms_limit": VC_CHUNK / sr * 1e3 / 2,
+          "chunk_duration_ms": VC_CHUNK / sr * 1e3,
+          "max_abs_err_vs_cpu": stream_err, "serialize_s": serialize_s,
+          "convert_pg_max_abs_err_vs_live": pg_err})
+    del vc
+
+    # (e) the receptive field of the conv stacks, card and CPU
+    lc, rc = loop.receptive_field_frames(cfg)
+
+    def rf_fn(m):
+        extra = cfg.decoder_latent_size() - cfg.latent_size
+
+        def apply(x):
+            z = m.encode_input(m.pqmf_forward(x))
+            z = torch.cat([z, z.new_zeros(z.shape[0], extra, z.shape[2])], 1)
+            return m.pqmf_inverse(m.decode_bands(z))
+        return apply
+
+    t0 = time.perf_counter()
+    rf_card = measure_receptive_field(rf_fn(model), device=device)
+    rf_card_s = time.perf_counter() - t0
+    rf_cpu = measure_receptive_field(rf_fn(cpu), device="cpu")
+    check(rf_card == rf_cpu, f"receptive field card {rf_card} cpu {rf_cpu}")
+    check(lc >= rf_card[0] // cfg.n_band + 1
+          and rc >= rf_card[1] // cfg.n_band + 1,
+          f"receptive field {rf_card} outside the crop {lc}, {rc}")
+    emit({"phase": "pitch", "step": "receptive_field",
+          "samples": list(rf_card), "band_frames_crop": [lc, rc],
+          "card_s": rf_card_s, "seconds": time.perf_counter() - t_phase})
+    shutil.rmtree(root)
+    return convert_launches, train_launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1805,7 +2289,10 @@ def main() -> int:
     phase_export_run(torch, np, run, db, wavs, smi)
     shutil.rmtree(SMOKE_DIR)
 
-    # 11. summary
+    # 11. the f0-conditioned fork: convert, FCPE, train, stream, probe
+    pitch_convert, pitch_train = phase_pitch(torch, np, KERNELS)
+
+    # 12. summary
     def total(key, path="offline_v2"):
         return sum(s[key] * s["launches_per_call"] for s in shapes
                    if s["path"] == path)
@@ -1826,6 +2313,9 @@ def main() -> int:
         "launches_vc_convert": vc_launches,
         "launches_train_vc_step": {k: v["residual_unit"]
                                    for k, v in train_vc_launches.items()},
+        "launches_pitch_convert": pitch_convert,
+        "launches_pitch_train_step": {k: v["residual_unit"]
+                                      for k, v in pitch_train.items()},
         "train_v2": {k: total(k, "train_v2") for k in (
             "ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms",
             "bound_ms_f32")}}]
@@ -1848,6 +2338,9 @@ def main() -> int:
                          else "bytes"),
             "launches_train_vc_step": {k: v[name] for k, v in
                                        train_vc_launches.items()},
+            "launches_pitch_convert": 0,
+            "launches_pitch_train_step": {k: v[name] for k, v in
+                                          pitch_train.items()},
             "library_ms": per("plain_ms")})
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -1,12 +1,12 @@
 """``python -m rave_tpu_torch.cli``: the port's console dispatcher.
 
-The JAX package's ``rave-tpu`` subcommands and flags
-(``rave_tpu/cli.py``): ``preprocess``, ``perturb``, ``units``,
-``decode_noise``, ``train``, ``export`` and ``eval`` run here; ``train``,
-``export`` and ``eval`` add ``--device`` (default ``cuda``, which raises
-without CUDA).  ``speaker_stats``, ``validate_assets`` and
-``remote_dataset`` raise ``NotImplementedError`` naming their ROADMAP
-items.
+Every subcommand of the JAX package's ``rave-tpu`` (``rave_tpu/cli.py``),
+with its flags: ``preprocess``, ``perturb``, ``units``, ``decode_noise``,
+``speaker_stats``, ``train``, ``export``, ``eval``, ``validate_assets``
+and ``remote_dataset``.  The commands that run a network (``train``,
+``export``, ``eval``, and ``speaker_stats`` and ``validate_assets`` where
+they load a checkpoint) add ``--device`` (default ``cuda``, which raises
+without CUDA).
 """
 
 from __future__ import annotations
@@ -15,11 +15,11 @@ import argparse
 import json
 import os
 import sys
+import threading
 from pathlib import Path
 
-# subcommand -> the ROADMAP item that ports it
-NOT_PORTED = {"speaker_stats": "A8", "validate_assets": "A11",
-              "remote_dataset": "A11"}
+# subcommand -> the ROADMAP item that ports it: none is left
+NOT_PORTED: dict[str, str] = {}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -70,8 +70,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="train on the signal derivative; demos are "
                          "integrated back")
     tr.add_argument("--speaker_stats", default=None,
-                    help="per-speaker f0 stats json for pitch conditioning "
-                         "(ROADMAP A8)")
+                    help="per-speaker f0 stats json (from `speaker_stats`) "
+                         "for pitch conditioning; default "
+                         "<db_path>/speaker_stats.json")
     prt = tr.add_mutually_exclusive_group()
     prt.add_argument("--perturb", action="store_true", default=None,
                      help="perturb the encoder input (formant/pitch shift "
@@ -142,21 +143,48 @@ def build_parser() -> argparse.ArgumentParser:
     dn.add_argument("--output_path", required=True)
     dn.add_argument("--sampling_rate", type=int, default=44100)
 
-    for name in NOT_PORTED:
-        sub.add_parser(name, help=f"not ported (ROADMAP {NOT_PORTED[name]})",
-                       add_help=False).add_argument("rest", nargs="*")
+    st = sub.add_parser("speaker_stats", help="per-speaker f0 statistics")
+    st.add_argument("--db_path", required=True)
+    st.add_argument("--pitch_ckpt",
+                    default=os.environ.get("RAVE_TPU_FCPE_CKPT", ""),
+                    help="torchfcpe checkpoint: f0 by the FCPE network; "
+                         "defaults to $RAVE_TPU_FCPE_CKPT, else YIN")
+    st.add_argument("--out", default=None,
+                    help="output json; default <db_path>/"
+                         "speaker_stats.json (where train looks)")
+    st.add_argument("--device", default="cuda",
+                    help="torch device of the FCPE network")
+
+    va = sub.add_parser(
+        "validate_assets",
+        help="validate the frozen-teacher assets (FCPE / HuBERT / speaker "
+             "checkpoints) against the port's readers and write a report")
+    va.add_argument("--fcpe_ckpt", default=None,
+                    help="torchfcpe checkpoint (default $RAVE_TPU_FCPE_CKPT)")
+    va.add_argument("--hubert_ckpt", default=None,
+                    help="local HuBERT checkpoint dir or TorchScript file "
+                         "(default $RAVE_TPU_HUBERT_CKPT)")
+    va.add_argument("--speaker_ckpt", default=None,
+                    help="VoxCeleb ECAPA speaker checkpoint (__S__. layout)")
+    va.add_argument("--db_path", default=None,
+                    help="preprocessed dataset for the mel-vs-HuBERT "
+                         "unit-stats comparison")
+    va.add_argument("--out", default=None,
+                    help="report path (default docs/assets_validation.md)")
+    va.add_argument("--device", default="cuda",
+                    help="torch device of the FCPE and speaker checks")
+
+    rd = sub.add_parser("remote_dataset",
+                        help="serve a preprocessed dataset over HTTP")
+    rd.add_argument("--db_path", required=True)
+    rd.add_argument("--host", default="0.0.0.0")
+    rd.add_argument("--port", type=int, default=8080)
     return p
 
 
 def main(argv=None) -> None:
-    args, extra = build_parser().parse_known_args(
+    args = build_parser().parse_args(
         argv if argv is not None else sys.argv[1:])
-    if args.command in NOT_PORTED:
-        raise NotImplementedError(
-            f"the {args.command} command is not ported to rave_tpu_torch "
-            f"yet (ROADMAP {NOT_PORTED[args.command]})")
-    if extra:
-        raise SystemExit(f"unrecognized arguments: {' '.join(extra)}")
 
     if args.command == "preprocess":
         from .data.dataset import precompute_perturbed, preprocess
@@ -215,6 +243,31 @@ def main(argv=None) -> None:
         res = decode_noise_corpus(args.input_path, args.output_path,
                                   args.sampling_rate)
         print(f"decoded {len(res)} noise files")
+    elif args.command == "speaker_stats":
+        from .data.dataset import AudioDataset
+        from .data.pitch import compute_speaker_stats
+        out = args.out or str(Path(args.db_path) / "speaker_stats.json")
+        stats = compute_speaker_stats(AudioDataset(args.db_path), out,
+                                      pitch_ckpt=args.pitch_ckpt,
+                                      device=args.device)
+        print(json.dumps(stats, indent=2))
+    elif args.command == "validate_assets":
+        from .utils.assets import validate_assets_main
+        validate_assets_main(args)
+    elif args.command == "remote_dataset":
+        from .data.dataset import AudioDataset
+        from .data.remote import serve_dataset
+        ds = AudioDataset(args.db_path)
+        server = serve_dataset(ds, host=args.host, port=args.port)
+        print(f"serving {len(ds)} items on {args.host}:{args.port} "
+              "(ctrl-c to stop)", flush=True)
+        try:
+            threading.Event().wait()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            server.shutdown()
+            server.server_close()
 
 
 if __name__ == "__main__":

@@ -26,6 +26,9 @@ adversary's ``layers_i`` is entry ``i`` of its ``Sequential``; the AAM
 head's ``weight`` keeps its layout.  A
 discriminator ``WNConv_i`` is the ``i``-th entry of its module's
 ``convs``, its ``v`` ``(*k, in, out)`` becoming ``(out, in, *k)``.
+``load_fcpe_params(fcpe, params)`` fills the FCPE pitch estimator
+(:class:`~rave_tpu_torch.models.pitch_fcpe.FCPE`) from the JAX package's
+FCPE tree, whose names it keeps (``layers`` a list there).
 """
 
 from __future__ import annotations
@@ -242,3 +245,30 @@ def load_discriminator_params(disc: nn.Module, params: Mapping) -> None:
     ld = _Loader()
     _load_wnconvs(ld, disc, params, "")
     ld.check(params, list(disc.named_parameters()))
+
+
+def load_fcpe_params(fcpe: nn.Module, params: Mapping) -> None:
+    """Copy the JAX package's FCPE parameter tree (``in0``, ``in_gn``,
+    ``in1``, ``layers`` (a list), ``norm``, ``out``) into a port
+    :class:`~rave_tpu_torch.models.pitch_fcpe.FCPE` in place: conv
+    kernels ``(k, in, out)`` become ``(out, in, k)``, dense kernels
+    ``(in, out)`` linear weights ``(out, in)``, norm scales weights.
+    Raises on an unused leaf or an unfilled parameter."""
+    ld = _Loader()
+    tree = {**params, "layers": {str(i): layer for i, layer
+                                 in enumerate(params["layers"])}}
+    layouts = {"Conv1d": lambda a: a.transpose(2, 1, 0),
+               "Linear": lambda a: a.T}
+    for name, module in fcpe.named_modules():
+        kind = type(module).__name__
+        if kind not in ("Conv1d", "Linear", "LayerNorm", "GroupNorm"):
+            continue
+        sub, path = tree, ""
+        for part in name.split("."):
+            sub, path = sub[part], f"{path}{part}/"
+        if kind in layouts:
+            ld.leaf(module.weight, sub, path, "kernel", layouts[kind])
+        else:
+            ld.leaf(module.weight, sub, path, "scale")
+        ld.leaf(module.bias, sub, path, "bias")
+    ld.check(tree, list(fcpe.named_parameters()))

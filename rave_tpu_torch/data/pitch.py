@@ -1,13 +1,17 @@
-"""YIN f0 tracking and speaker-normalised f0, in numpy.
+"""YIN f0 tracking, speaker-normalised f0 and per-speaker f0 statistics.
 
-The port's copy of ``yin_f0`` and ``f0_norm`` from
-``rave_tpu/data/pitch.py``: the FFT-autocorrelation YIN that the
-perturbation's pitch shifter and the trainer's conversion metrics read.
-The per-speaker statistics (``compute_speaker_stats``) belong to the
-pitch slice (ROADMAP A8).
+The port's copy of ``rave_tpu/data/pitch.py``: the numpy FFT-
+autocorrelation YIN that the perturbation's pitch shifter and the
+trainer's conversion metrics read, and ``compute_speaker_stats``, the
+per-speaker log-f0 median and std JSON that conditions the ``pitch``
+preset (the ``speaker_stats`` command).  numpy only, but for the FCPE
+route, which imports torch when it is taken.
 """
 
 from __future__ import annotations
+
+import json
+from pathlib import Path
 
 import numpy as np
 
@@ -86,3 +90,49 @@ def f0_norm(f0: np.ndarray, median: float, std: float) -> np.ndarray:
     lf0 = np.where(voiced, np.log(np.maximum(f0, 1e-6)), 0.0)
     return np.where(voiced, (lf0 - median) / (std + 1e-6), 0.0) \
         .astype(np.float32)
+
+
+def compute_speaker_stats(dataset, out_json: str,
+                          max_items_per_speaker: int = 50,
+                          pitch_ckpt: str = "", fmin: float = 50.0,
+                          fmax: float = 550.0, device="cuda") -> dict:
+    """Per-speaker log-f0 statistics of ``dataset``'s first
+    ``max_items_per_speaker`` items of each speaker, written to
+    ``out_json`` and returned: ``{name: {"mean": median, "std": std}}``
+    (``mean`` holds the median of the voiced log-f0 values, as in the JAX
+    package; ``std`` is their biased std).  f0 by the numpy YIN, or with
+    a ``pitch_ckpt`` by the FCPE network on ``device``; a missing
+    checkpoint warns and takes YIN."""
+    fcpe_fn = None
+    if pitch_ckpt:
+        import torch
+        from .. import resolve_device
+        from ..models.pitch_fcpe import fcpe_f0, get_fcpe
+        dev = resolve_device(device)
+        model = get_fcpe(pitch_ckpt, dev)
+        if model is not None:
+            def fcpe_fn(x):
+                with torch.inference_mode():
+                    xt = torch.as_tensor(np.asarray(x, np.float32),
+                                         device=dev)[None]
+                    return fcpe_f0(model, xt, dataset.sr, fmin=fmin,
+                                   fmax=fmax)[0].cpu().numpy()
+    per_speaker: dict[str, list] = {}
+    counts: dict[str, int] = {}
+    for i in range(len(dataset)):
+        item = dataset[i]
+        name = dataset.speaker_names[int(item["speaker"])]
+        if counts.get(name, 0) >= max_items_per_speaker:
+            continue
+        counts[name] = counts.get(name, 0) + 1
+        f0 = (fcpe_fn(item["x"]) if fcpe_fn is not None
+              else yin_f0(item["x"], dataset.sr, fmin=fmin, fmax=fmax))
+        v = f0[f0 > 0]
+        if len(v):
+            per_speaker.setdefault(name, []).extend(np.log(v).tolist())
+    stats = {name: {"mean": float(np.median(vals)),
+                    "std": float(np.std(np.asarray(vals)))}
+             for name, vals in per_speaker.items()}
+    Path(out_json).parent.mkdir(parents=True, exist_ok=True)
+    Path(out_json).write_text(json.dumps(stats, indent=2))
+    return stats

@@ -17,11 +17,23 @@ The speaker encoder runs offline on what it is given, in every mode.
 The conversion step and the learn-target step are pure functions of the
 stream's caches (:class:`~rave_tpu_torch.ops.conv.StreamStep`), which
 ``serialize`` exports with ``torch.export``.
+
+A pitch config (``pitch_embedding_size``) appends each block's
+normalised f0 to the latent: f0 by YIN (or FCPE with a checkpoint) on
+the model's device over the block and the 1024 samples before it, then
+normalised on the host by the median and std of the last 500 voiced
+log-f0 values (numpy float64) and linearly interpolated to the block's
+latent frames with aligned corners (``np.interp``; the offline feature
+resamples as ``jax.image.resize`` does, with antialiasing; both as in
+the JAX package).  ``serialize`` also writes ``convert_pg.pt2``, whose
+f0 is computed in the program by YIN with the block's own statistics,
+its carried state the caches and the f0 tail.
 """
 
 from __future__ import annotations
 
 import json
+from functools import partial
 from pathlib import Path
 from typing import Mapping, Optional, Sequence
 
@@ -31,8 +43,14 @@ import torch
 from ..config import RAVEConfig
 from ..data.audio_io import load_wav
 from ..ops.conv import StreamStep
+from ..ops.pitch import (NEUTRAL_LOG_F0, f0_norm_feature, voiced_log_stats,
+                         yin_f0)
 from ..ops.pqmf import PQMF
 from .streaming import StreamingRAVE, export_step, write_manifest
+
+
+F0_FRAME = 2048     # YIN frame of the streamed f0
+RESERVOIR = 500     # voiced log-f0 values the streamed statistics keep
 
 
 class VoiceConverter:
@@ -71,6 +89,34 @@ class VoiceConverter:
         mods = self.stream.cache_modules
         self._convert = StreamStep(self.model, self._convert_chunk, mods)
         self._embed = StreamStep(self.model, self._embed_chunk, mods)
+        self._pitch = cfg.pitch_embedding_size > 0
+        if self._pitch:
+            # f0 frames need frame_length - hop samples before the block
+            self._f0_hop = cfg.pitch_hop
+            self._tail_len = F0_FRAME - cfg.pitch_hop
+            self._z_frames = chunk_size // cfg.total_ratio()
+            fcpe = None
+            if cfg.pitch_estimator == "fcpe":
+                from ..models.pitch_fcpe import get_fcpe
+                fcpe = get_fcpe(cfg.pitch_ckpt, self.device)
+            if fcpe is not None:
+                from ..models.pitch_fcpe import fcpe_f0
+                self._f0_fn = lambda xc: fcpe_f0(
+                    fcpe, xc, cfg.sampling_rate,
+                    out_frames=max(1, xc.shape[1] // self._f0_hop),
+                    fmin=cfg.pitch_fmin, fmax=cfg.pitch_fmax)
+            else:
+                self._f0_fn = partial(
+                    yin_f0, sr=cfg.sampling_rate,
+                    frame_length=F0_FRAME, hop=self._f0_hop,
+                    fmin=cfg.pitch_fmin, fmax=cfg.pitch_fmax)
+            self._convert_pg = StreamStep(self.model, self._convert_pg_chunk,
+                                          mods)
+            self._reset_pitch()
+
+    def _reset_pitch(self) -> None:
+        self._f0_tail = np.zeros(self._tail_len, np.float32)
+        self._logf0: list = []
 
     # ---- nn~-style attributes ------------------------------------------
 
@@ -93,8 +139,11 @@ class VoiceConverter:
         self.learn_target = bool(on)
 
     def reset(self) -> None:
-        """Forget the streaming caches (not the target)."""
+        """Forget the streaming caches, and a pitch config's f0 tail and
+        log-f0 reservoir (not the target)."""
         self.stream.reset()
+        if self._pitch:
+            self._reset_pitch()
 
     def current_embedding(self) -> np.ndarray:
         """The target embedding ``(E,)``: the learned mean if any chunk
@@ -105,15 +154,60 @@ class VoiceConverter:
 
     # ---- per-chunk processing -------------------------------------------
 
-    def _convert_chunk(self, x: torch.Tensor, emb: torch.Tensor
-                       ) -> torch.Tensor:
-        """Source chunk ``(1, chunk, 1)`` and target embedding ``(E,)``
-        -> converted chunk ``(1, chunk, 1)``: the streamed PQMF, the
-        encoder, the embedding appended to every latent frame, the
+    def _convert_chunk(self, x: torch.Tensor, emb: torch.Tensor,
+                       feat: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Source chunk ``(1, chunk, 1)``, target embedding ``(E,)`` and,
+        for a pitch config, its f0 feature ``(1, T_z, P)`` -> converted
+        chunk ``(1, chunk, 1)``: the streamed PQMF, the encoder, the
+        embedding (and the feature) appended to every latent frame, the
         generator and the streamed PQMF synthesis."""
         m = self.model
         z = m.condition(m.encode_input(m.pqmf_forward(x)), emb[None])
+        if feat is not None:
+            z = torch.cat([z, feat.transpose(1, 2)], dim=1)
         return m.pqmf_inverse(m.decode_bands(z))
+
+    def _convert_pg_chunk(self, f0_tail: torch.Tensor, x: torch.Tensor,
+                          emb: torch.Tensor):
+        """The self-contained pitch step of ``convert_pg.pt2``: YIN over
+        ``f0_tail`` ``(1, tail)`` and the chunk, normalised by the
+        block's own statistics -> ``(y, new tail)``."""
+        cfg = self.model.cfg
+        xc = torch.cat([f0_tail, x[:, :, 0]], dim=1)
+        f0 = yin_f0(xc, cfg.sampling_rate, F0_FRAME, self._f0_hop,
+                    cfg.pitch_fmin, cfg.pitch_fmax)
+        med, std = voiced_log_stats(f0)
+        feat = f0_norm_feature(f0, med, std, self._z_frames,
+                               cfg.pitch_embedding_size)
+        return (self._convert_chunk(x, emb, feat),
+                xc[:, -self._tail_len:])
+
+    def _pitch_feature(self, x_chunk: np.ndarray) -> torch.Tensor:
+        """The f0 feature ``(1, T_z, P)`` of one block: f0 on the device
+        over the tail and the block, the host's reservoir of the last 500
+        voiced log-f0 values, ``np.interp`` to the latent frames."""
+        xc = np.concatenate([self._f0_tail, x_chunk.astype(np.float32)])
+        self._f0_tail = xc[-self._tail_len:]
+        f0 = self._f0_fn(torch.from_numpy(xc[None]).to(self.device)
+                         )[0].cpu().numpy()
+        voiced = f0 > 0
+        if voiced.any():
+            self._logf0.extend(np.log(f0[voiced]).tolist())
+            self._logf0 = self._logf0[-RESERVOIR:]
+        if self._logf0:
+            med = float(np.median(self._logf0))
+            std = float(max(np.std(self._logf0), 1e-3))
+        else:
+            med, std = NEUTRAL_LOG_F0, 0.5
+        feat = np.where(voiced, (np.log(np.maximum(f0, 1e-6)) - med) / std,
+                        0.0).astype(np.float32)
+        n = len(feat)
+        pos = (np.linspace(0, n - 1, self._z_frames) if n > 1
+               else np.zeros(self._z_frames))
+        feat = np.interp(pos, np.arange(n), feat)
+        feat = np.tile(feat[None, :, None],
+                       (1, 1, self.model.cfg.pitch_embedding_size))
+        return torch.tensor(feat, dtype=torch.float32, device=self.device)
 
     def _embed_chunk(self, x: torch.Tensor) -> torch.Tensor:
         """Chunk -> its speaker embedding ``(1, E)``; only the streamed
@@ -134,7 +228,11 @@ class VoiceConverter:
             self._target_n += 1
             return np.zeros_like(x_chunk)
         emb = torch.tensor(self.current_embedding(), device=self.device)
-        y, st.caches = self._convert(st.caches, x, emb)
+        if self._pitch:
+            feat = self._pitch_feature(np.asarray(x_chunk).reshape(-1))
+            y, st.caches = self._convert(st.caches, x, emb, feat)
+        else:
+            y, st.caches = self._convert(st.caches, x, emb)
         return y[0, :, 0].cpu().numpy()
 
     # ---- offline enrollment ----------------------------------------------
@@ -200,12 +298,19 @@ class VoiceConverter:
         model's device, beside :meth:`StreamingRAVE.serialize`'s files:
 
         * ``convert.pt2``: ``(caches, x, emb) -> (y, caches)``, ``emb``
-          ``(E,)`` (reload with ``torch.export.load(path).module()``);
+          ``(E,)``, and for a pitch config ``(caches, x, emb, feat) ->
+          (y, caches)``, ``feat`` ``(1, T_z, P)`` (reload with
+          ``torch.export.load(path).module()``);
         * ``spk_embed.pt2``: ``(caches, x) -> (emb, caches)`` for
           learn-target streaming;
         * ``convert_manifest.txt`` and ``convert_cache_init.bin`` (the
           JAX package's call convention), ``convert_meta.json``;
-        * ``speaker_table.npy``.
+        * ``speaker_table.npy``;
+        * for a pitch config, ``convert_pg.pt2``: ``(caches, f0_tail, x,
+          emb) -> (y, caches, f0_tail)`` with f0 computed in the program
+          (``f0_tail`` ``(1, 1024)``, zeros at the start), and its
+          ``convert_pg_manifest.txt`` and ``convert_pg_cache_init.bin``
+          (the caches, then the tail).
         """
         out = Path(out_dir)
         out.mkdir(parents=True, exist_ok=True)
@@ -214,13 +319,26 @@ class VoiceConverter:
         caches = [torch.zeros_like(c) for c in st.init_caches]
         x = torch.zeros(1, st.chunk, 1, device=self.device)
         emb = torch.zeros(cfg.speaker_embedding_size, device=self.device)
+        args = (x, emb)
+        if self._pitch:
+            args += (torch.zeros(1, self._z_frames, cfg.pitch_embedding_size,
+                                 device=self.device),)
         with torch.no_grad():
-            export_step(self._convert, (caches, x, emb), out / "convert.pt2")
+            export_step(self._convert, (caches, *args), out / "convert.pt2")
             export_step(self._embed, (caches, x), out / "spk_embed.pt2")
-            y, new = self._convert(caches, x, emb)
-        write_manifest(out, "convert", [*caches, x, emb], [y, *new], caches,
+            y, new = self._convert(caches, *args)
+        write_manifest(out, "convert", [*caches, *args], [y, *new], caches,
                        chunk=st.chunk, sampling_rate=cfg.sampling_rate,
                        batch=1)
+        if self._pitch:
+            tail = torch.zeros(1, self._tail_len, device=self.device)
+            with torch.no_grad():
+                export_step(self._convert_pg, (caches, tail, x, emb),
+                            out / "convert_pg.pt2")
+                (y, tail2), new = self._convert_pg(caches, tail, x, emb)
+            write_manifest(out, "convert_pg", [*caches, tail, x, emb],
+                           [y, *new, tail2], [*caches, tail], chunk=st.chunk,
+                           sampling_rate=cfg.sampling_rate, batch=1)
         meta = dict(chunk_size=st.chunk, sampling_rate=cfg.sampling_rate,
                     speaker_embedding_size=cfg.speaker_embedding_size,
                     pitch_embedding_size=cfg.pitch_embedding_size,

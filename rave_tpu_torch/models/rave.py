@@ -12,7 +12,11 @@ carried in the conv modules; the speaker encoder always runs offline).
 With ``train_speaker_encoder`` the speaker encoder trains with the rest
 (its embedding keeps its gradient; a BatchNorm encoder takes batch
 statistics while ``train_mode`` holds), beside the AAM head and the
-latent adversary (``train/loop.py``).
+latent adversary (``train/loop.py``).  With ``pitch_embedding_size``
+(the ``pitch`` preset) the decoder latent also carries the normalised f0
+of the input audio (:func:`~rave_tpu_torch.ops.pitch.pitch_feature`,
+per-utterance statistics): in ``encode`` and ``convert`` (the source's
+f0, the target's timbre).
 
 Options outside this slice raise ``NotImplementedError`` naming the
 ROADMAP item that ports them.
@@ -29,6 +33,7 @@ from torch import nn
 from .. import resolve_device
 from ..config import RAVEConfig
 from ..ops.conv import StreamSetup
+from ..ops.pitch import pitch_feature
 from ..ops.pqmf import PQMF, _pqmf_kernels
 from .blocks import EncoderV2, GeneratorV2
 from .latent import VariationalHead
@@ -48,7 +53,6 @@ def check_supported(cfg: RAVEConfig) -> None:
         (cfg.latent_head == "discrete", "the discrete latent head", "A4"),
         (cfg.latent_head in ("wasserstein", "spherical")
          or cfg.noise_augmentation, f"the {cfg.latent_head} latent head", "A6"),
-        (cfg.pitch_embedding_size, "pitch conditioning", "A8"),
         (cfg.compute_dtype != "float32",
          f"compute_dtype {cfg.compute_dtype!r}", "A10"),
     ]
@@ -298,22 +302,43 @@ class RAVE(nn.Module):
         """Latent ``(B, C, T_z)`` -> unit logits ``(B, tf, units)``."""
         return self.ce_projection(z, target_frames)
 
+    def append_pitch(self, z: torch.Tensor, x: torch.Tensor,
+                     median: Optional[torch.Tensor] = None,
+                     std: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """With ``pitch_embedding_size``, append to ``z`` ``(B, C, T_z)``
+        the normalised f0 of the audio ``x`` ``(B, T, 1)``, by the
+        log-f0 ``median``/``std`` ``(B,)`` where given, else by the
+        item's own; without it, ``z``."""
+        cfg = self.cfg
+        if not cfg.pitch_embedding_size:
+            return z
+        feat = pitch_feature(x, z.shape[2], cfg.sampling_rate,
+                             hop=cfg.pitch_hop, fmin=cfg.pitch_fmin,
+                             fmax=cfg.pitch_fmax, median=median, std=std,
+                             channels=cfg.pitch_embedding_size,
+                             estimator=cfg.pitch_estimator,
+                             fcpe_ckpt=cfg.pitch_ckpt)
+        return torch.cat([z, feat.transpose(1, 2)], dim=1)
+
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """Audio ``(B, T, 1)`` -> latent ``(B, T_z, C)``: the variational
-        mean, or the raw latent and the speaker embedding."""
+        mean, or the raw latent and the speaker embedding; then the
+        normalised f0 of a pitch config."""
         bands = self.pqmf_forward(x)
-        return self.inference_latent(bands,
+        return self.inference_latent(x, bands,
                                      self.encode_input(bands)).transpose(1, 2)
 
-    def inference_latent(self, bands: torch.Tensor,
+    def inference_latent(self, x: torch.Tensor, bands: torch.Tensor,
                          z_pre: torch.Tensor) -> torch.Tensor:
         """The decoder's latent ``(B, C, T_z)`` at inference from the
-        pre-regularisation latent of ``bands``: the variational mean, or
-        the raw latent and the speaker embedding."""
+        audio ``x``, its ``bands`` and their pre-regularisation latent:
+        the variational mean, or the raw latent and the speaker
+        embedding; then :meth:`append_pitch`."""
         if self.speaker_encoder is None:
             z, _ = VariationalHead.mean_scale(z_pre)
-            return z
-        return self.condition(z_pre, self.speaker_embedding(bands))
+        else:
+            z = self.condition(z_pre, self.speaker_embedding(bands))
+        return self.append_pitch(z, x)
 
     def decode_bands(self, z: torch.Tensor) -> torch.Tensor:
         """Latent ``(B, C, T_z)`` -> bands ``(B, M, T/M)``."""
@@ -334,7 +359,8 @@ class RAVE(nn.Module):
         sources first, so that a cohort-norm encoder whitens each target
         against the sources; the embedding is the mean over the target's
         segments.  A segment length that is not a multiple of the band
-        count fails in the PQMF, as in the JAX package."""
+        count fails in the PQMF, as in the JAX package.  A pitch config
+        appends the source's normalised f0."""
         if self.speaker_encoder is None:
             raise ValueError("convert needs a speaker-conditioned model")
         bands = self.pqmf_forward(x)
@@ -351,4 +377,6 @@ class RAVE(nn.Module):
         cohort = torch.cat([chunks(x), chunks(target)], dim=0)
         emb_all = self.speaker_embedding(self.pqmf_forward(cohort))
         emb = emb_all.reshape(2, B, segs, -1)[1].mean(dim=1)
-        return self.pqmf_inverse(self.decode_bands(self.condition(z, emb)))
+        # the source's prosody, the target's timbre
+        z = self.append_pitch(self.condition(z, emb), x)
+        return self.pqmf_inverse(self.decode_bands(z))

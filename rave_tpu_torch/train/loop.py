@@ -23,7 +23,10 @@ Port of ``rave_tpu/train/loop.py`` for the variational latent head:
   ``audio_distance_v1`` over the bands and over the audio.  The fork's
   branch draws no random numbers (the decoder sees the detached raw
   latent and the speaker embedding, no noise), so its step is
-  deterministic.  With ``speaker_classes`` and ``batch["speaker"]`` it
+  deterministic.  A pitch config appends the clean signal's normalised
+  f0 to the decoder latent in both branches, by the batch's
+  ``f0_median``/``f0_std`` (speaker statistics) where it has them.  With
+  ``speaker_classes`` and ``batch["speaker"]`` it
   adds the AAM speaker CE (``weights["speaker_ce"]``) and, with
   ``latent_adversary_weight``, the adversary's CE on the latent through
   gradient reversal; a BatchNorm speaker encoder in training mode
@@ -275,6 +278,11 @@ def _forward_losses(cfg: RAVEConfig, model: RAVE, batch: Mapping,
         z_dec = model.condition(z_pre.detach(), emb)
     else:
         z_dec, reg = model.reparametrize(z_pre, eps, generator)
+    # a pitch config: the normalised f0 of the clean signal (a function
+    # of the data alone, so without gradient), by the batch's speaker
+    # statistics where it has them, else by the item's own
+    z_dec = model.append_pitch(z_dec, x, batch.get("f0_median"),
+                               batch.get("f0_std"))
     bands_y = model.decode_bands(z_dec)
 
     if cfg.valid_signal_crop:
@@ -405,8 +413,9 @@ def _discriminator_step(cfg: RAVEConfig, state: TrainState, batch,
 def make_train_step(cfg: RAVEConfig):
     """``train_step(state, batch, eps=None) -> metrics``: one D or G step
     chosen by ``state.step``, which it then advances.  ``batch`` holds
-    ``x`` ``(B, T, 1)`` float32, optionally ``x_perturbed`` (same shape)
-    and ``units`` ``(B, frames)`` int64, on the state's device.  ``eps``
+    ``x`` ``(B, T, 1)`` float32, optionally ``x_perturbed`` (same shape),
+    ``units`` ``(B, frames)`` int64 and, for a pitch config,
+    ``f0_median``/``f0_std`` ``(B,)`` float32, on the state's device.  ``eps``
     ``(B, latent, T_z)`` is the upstream branch's latent noise; without
     it the step draws it from ``state.generator``.  Metric values are
     0-d tensors on that device (or 0.0 for an untaken term), plus
@@ -444,7 +453,7 @@ def make_eval_step(cfg: RAVEConfig):
             bands = model.pqmf_forward(x)
             z_pre = model.encode_input(bands)
             y = model.pqmf_inverse(model.decode_bands(
-                model.inference_latent(bands, z_pre)))
+                model.inference_latent(x, bands, z_pre)))
             t = min(x.shape[1], y.shape[1])
             metrics = {"validation": L.audio_distance_v1(
                 x[:, :t, 0], y[:, :t, 0], cfg.stft_scales, cfg.log_epsilon)}

@@ -6,6 +6,10 @@ loop around :func:`~rave_tpu_torch.train.loop.make_train_step`, metric
 logging (jsonl, TensorBoard when importable), EMA weights for
 validation, audio and conversion demos with objective conversion
 metrics, the latent PCA, and best/last checkpoints with ``--resume``.
+A pitch config reads the per-speaker log-f0 statistics
+(``--speaker_stats``, default ``<db>/speaker_stats.json``) and adds each
+item's speaker's to its batch; without the file the step takes each
+item's own.
 
 Batches cross to the device as pinned, non-blocking copies, and the host
 reads the metrics only every 50 steps, so the loop does not wait for the
@@ -260,6 +264,7 @@ def train_main(args) -> None:
             print("note: input perturbation is CPU-heavy (~150 ms/item); "
                   "run the `perturb` command once to precompute variants, "
                   "or use --num_workers 8")
+    f0_stats = speaker_f0_stats(cfg, args, ds)
     n_speakers = len(getattr(ds, "speaker_names", []))
     if cfg.speaker_embedding_size and 0 < cfg.speaker_classes < n_speakers:
         raise ValueError(
@@ -281,12 +286,50 @@ def train_main(args) -> None:
     val_loader = DataLoader(ds, min(cfg.batch_size, len(val_idx)), val_idx,
                             shuffle=False)
     try:
-        _train(args, cfg, device, run_dir, ds, train_loader, val_loader)
+        _train(args, cfg, device, run_dir, ds, train_loader, val_loader,
+               f0_stats)
     finally:
         train_loader.close()
 
 
-def _train(args, cfg, device, run_dir, ds, train_loader, val_loader):
+def speaker_f0_stats(cfg, args, ds):
+    """A pitch config's per-speaker ``(median, std)`` arrays, indexed by
+    speaker id, from the ``--speaker_stats`` JSON (default
+    ``<db_path>/speaker_stats.json``): a speaker the file lacks gets
+    ``log 160`` and 0.5, a std below 1e-3 is raised to it.  None for
+    another config, or where the file is missing (the step then takes
+    each item's own statistics)."""
+    if not cfg.pitch_embedding_size:
+        return None
+    path = Path(getattr(args, "speaker_stats", None)
+                or Path(args.db_path) / "speaker_stats.json")
+    if not path.exists():
+        print("pitch stats: none found, using per-utterance stats")
+        return None
+    stats = json.loads(path.read_text())
+    names = getattr(ds, "speaker_names", [])
+    med = np.array([stats.get(n, {}).get("mean", np.log(160.0))
+                    for n in names], np.float32)
+    std = np.array([max(stats.get(n, {}).get("std", 0.5), 1e-3)
+                    for n in names], np.float32)
+    print(f"pitch stats: {path} ({len(stats)} speakers)")
+    return med, std
+
+
+def make_enrich(f0_stats):
+    """``batch -> batch`` adding each item's speaker's ``f0_median`` and
+    ``f0_std`` where there are statistics and speaker ids."""
+    def enrich(batch: dict) -> dict:
+        if f0_stats is None or "speaker" not in batch:
+            return batch
+        sid = np.asarray(batch["speaker"])
+        return {**batch, "f0_median": f0_stats[0][sid],
+                "f0_std": f0_stats[1][sid]}
+    return enrich
+
+
+def _train(args, cfg, device, run_dir, ds, train_loader, val_loader,
+           f0_stats=None):
     """The state, the checkpoints and the loop of :func:`train_main`."""
     torch.manual_seed(0)
     state = TrainState(cfg, device=device, seed=0)
@@ -314,7 +357,11 @@ def _train(args, cfg, device, run_dir, ds, train_loader, val_loader):
 
     step_fn = make_train_step(cfg)
     eval_fn = make_eval_step(cfg)
-    put = make_put(device)
+    to_device, enrich = make_put(device), make_enrich(f0_stats)
+
+    def put(batch: dict) -> dict:
+        return to_device(enrich(batch))
+
     logger = MetricLogger(run_dir)
 
     # --profile: section times (load, put, step), each ending in a

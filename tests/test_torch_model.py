@@ -112,8 +112,7 @@ def test_variational_head_sampling_matches():
                                   ["use_noise=true"],
                                   ["compute_dtype=bfloat16"],
                                   ["latent_head=discrete"],
-                                  ["speaker_embedding_size=256",
-                                   "pitch_embedding_size=1"]])
+                                  ["latent_head=wasserstein"]])
 def test_unsupported_options_raise(over):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         RAVE(build_config(["v2"], TINY + over), device="cpu")
