@@ -147,7 +147,28 @@ the last line:
    ``convert_pg.pt2`` over 8 chunks against the live in-graph step
    within 2e-4.  (e) ``measure_receptive_field`` of the conv stacks on
    the card equal to the CPU's, inside ``receptive_field_frames``' crop.
-   ``_smoke/`` is removed after it.
+12. native: the exported steps served by the C++ host
+   (``csrc/aoti_host.cpp``, built once with ``g++`` against libtorch) from
+   AOTInductor packages (``export/native.py``), one CUDA graph replay per
+   block, no Python.  (a) The offline phase's v2 weights, ``serialize``
+   at chunk 2048, ``forward`` compiled and served over 64 blocks of
+   request 0: every block and the last caches equal to
+   ``StreamingRAVE.forward`` over the same chunks (<= 2e-4); compile
+   seconds, package size, pipelined and blocking RTF, p50/p80 block ms,
+   beside the same call's ``process_file_scan`` and ``process_file`` ms
+   per chunk; the kernels of one block of the package (loaded in Python,
+   ``torch.profiler``) against the eager step's.  (b) Run while phase
+   10(b)'s run exists: its ``convert.pt2`` over 32 blocks of 4096 of a
+   speaker's clip against the reloaded program with a zero embedding
+   (<= 2e-4).  (c) Phase 11's ``convert_pg.pt2`` over 32 blocks of 4096
+   of a gliding voice (YIN voiced) against the reloaded program (<= 2e-4,
+   the carried f0 tail equal); the operators each package runs through
+   the proxy executor.  (d) The host exits 1 with its message on a
+   package compiled for the CPU (a tiny v2, compiled in a subprocess
+   meanwhile), a missing package, and a manifest whose ``out`` lines are
+   rotated by one.  B1 runs in no package block and is launched by no
+   Python call of the phase.  ``_smoke/`` is removed after phase 10 and
+   after this one.
 
 Before the last line it prints the ``nvidia-smi`` line and one JSON
 object ``{"kernels": [...]}``; the last line is
@@ -480,7 +501,9 @@ def device_profile(torch, fn, names=()) -> dict:
             "top": [[e.key[:80], e.self_device_time_total / 1e3, e.count]
                     for e in top],
             "named_ms": {n: sum(e.self_device_time_total for e in kernels
-                                if n in e.key) / 1e3 for n in names}}
+                                if n in e.key) / 1e3 for n in names},
+            "named_count": {n: sum(e.count for e in kernels if n in e.key)
+                            for n in names}}
 
 
 def train_batch(torch, np, B, T, frames, seed=SEED):
@@ -1761,8 +1784,9 @@ def run_cli(*args, timeout=600):
 
 def phase_pitch(torch, np, KERNELS, device="cuda"):
     """The f0-conditioned fork (see the module docstring, phase 11).
-    Returns B1's launches per ``convert`` and each kernel's per D and G
-    step."""
+    Returns B1's launches per ``convert``, each kernel's per D and G step
+    and the directory of the serialized converter (under ``_smoke/``,
+    which the caller removes)."""
     from pathlib import Path
     from rave_tpu_torch.config import build_config
     from rave_tpu_torch.data.audio_io import save_wav
@@ -2056,19 +2080,19 @@ def phase_pitch(torch, np, KERNELS, device="cuda"):
                                out_dir / "convert_pg_cache_init.bin", n + 1,
                                device)
     prog = torch.export.load(out_dir / "convert_pg.pt2").module()
-    live = [c.clone() for c in vc.stream.init_caches]
-    caches, tail = carry[:n], carry[n]
-    live_tail = torch.zeros_like(tail)
+    # the carry: the caches, then the f0 tail, in and out
+    live = [c.clone() for c in carry]
     emb = torch.tensor(vc.current_embedding(), device=device)
     pg_err = 0.0
     with torch.no_grad():
         for c in chunks[:8]:
             xc = torch.tensor(c.reshape(1, -1, 1), device=device)
-            (yp, tail), caches = prog(caches, tail, xc, emb)
-            (yl, live_tail), live = vc._convert_pg(live, live_tail, xc, emb)
+            yp, carry = prog(carry, xc, emb)
+            yl, live = vc._convert_pg(live, xc, emb)
             pg_err = max(pg_err, (yp - yl).abs().max().item())
             check(bool(torch.isfinite(yp).all()), "convert_pg not finite")
-    check(pg_err <= EXPORT_TOL, f"convert_pg.pt2 vs live: {pg_err}")
+    check(pg_err <= EXPORT_TOL and torch.equal(carry[-1], live[-1]),
+          f"convert_pg.pt2 vs live: {pg_err}")
     emit({"phase": "pitch", "step": "stream", "chunk": VC_CHUNK,
           "chunks": len(chunk_ms), "launches": stream_launches,
           "chunk_ms_median": statistics.median(chunk_ms),
@@ -2103,8 +2127,288 @@ def phase_pitch(torch, np, KERNELS, device="cuda"):
     emit({"phase": "pitch", "step": "receptive_field",
           "samples": list(rf_card), "band_frames_crop": [lc, rc],
           "card_s": rf_card_s, "seconds": time.perf_counter() - t_phase})
-    shutil.rmtree(root)
-    return convert_launches, train_launches
+    return convert_launches, train_launches, out_dir
+
+
+# native: the exported steps served by the C++ host, with no Python
+NATIVE_BLOCKS = 64       # 2048-sample blocks of full-width v2 (131072)
+NATIVE_VC_BLOCKS = 32    # 4096-sample blocks of the fork's converters
+# (d)'s package compiled for the CPU: any program will do, so a tiny v2
+NATIVE_CPU_TINY = ["capacity=4", "ratios=[2,2]", "dilations=[[1,3],[1,3]]"]
+NATIVE_TIMEOUT = 600     # s, the CPU package's compile in a subprocess
+
+
+def n_caches(manifest) -> int:
+    """The cache count of a manifest: its outputs but ``y``."""
+    return sum(ln.startswith("out ")
+               for ln in manifest.read_text().splitlines()) - 1
+
+
+def serve_native(torch, np, export_dir, prefix, x, host, device="cuda"):
+    """``<export_dir>/<prefix>.pt2`` compiled into its AOTInductor package
+    and served by the host over the blocks ``x`` ``(n, chunk)``: the
+    host's JSON line with the compile seconds, the package's size and the
+    operators it runs through the proxy executor; the blocking loop's
+    outputs ``(n, chunk)``; the last caches, flat; the package's path."""
+    from rave_tpu_torch.export import native
+    pkg, compile_s = native.compile_package(export_dir, prefix, device)
+    files = {k: export_dir / f"{prefix}_{k}.bin" for k in ("x", "y", "c")}
+    np.ascontiguousarray(x, np.float32).tofile(files["x"])
+    res = native.run_host(export_dir, len(x), prefix, device,
+                          x_in=str(files["x"]), y_out=str(files["y"]),
+                          carry_out=str(files["c"]), host=host)
+    y = np.fromfile(files["y"], np.float32).reshape(x.shape)
+    check(res["cuda_graph"] and res["blocks"] == len(x),
+          f"host {prefix}: {res}")
+    check(bool(np.isfinite(y).all()), f"host {prefix}: output not finite")
+    res.update(compile_s=compile_s, package_mb=pkg.stat().st_size / 2 ** 20,
+               proxy_ops=native.proxy_ops(pkg))
+    return res, y, np.fromfile(files["c"], np.float32), pkg
+
+
+def program_blocks(torch, np, prog, carry, x, extra, device="cuda"):
+    """The reloaded program over the blocks ``x`` from ``carry`` (with the
+    inputs ``extra`` after the chunk): its outputs ``(n, chunk)`` and the
+    last caches, flat."""
+    ys = []
+    with torch.no_grad():
+        for xc in x:
+            y, carry = prog(carry, torch.tensor(xc.reshape(1, -1, 1),
+                                                device=device), *extra)
+            ys.append(y.reshape(-1).cpu().numpy())
+    return np.stack(ys), np.concatenate([c.reshape(-1).cpu().numpy()
+                                         for c in carry])
+
+
+def package_profile(torch, pkg, args) -> dict:
+    """One block of the package, loaded in Python and called on ``args``
+    (contiguous caches, as the host passes them), by ``torch.profiler``:
+    its kernels on the card, their time and B1's count among them."""
+    aot = torch._inductor.aoti_load_package(str(pkg))
+    with torch.no_grad():
+        return device_profile(torch, lambda: aot(*args),
+                              names=("residual_unit",))
+
+
+def hold_host(np, what, y, want, carry, want_carry) -> dict:
+    """The host's outputs and last caches against the program's: the
+    largest differences, each within ``EXPORT_TOL``."""
+    err = float(np.abs(y - want).max())
+    carry_err = float(np.abs(carry - want_carry).max())
+    check(carry.shape == want_carry.shape,
+          f"{what}: {carry.shape} cache values, the program {want_carry.shape}")
+    check(max(err, carry_err) <= EXPORT_TOL,
+          f"{what}: host vs program {err}, caches {carry_err}")
+    return {"max_abs_err_vs_program": err, "caches_max_abs_err": carry_err}
+
+
+def phase_native_convert(torch, np, run, wavs, card, device="cuda"):
+    """(b) of the native phase, while phase 10(b)'s trained run exists:
+    its ``convert.pt2`` served by the host over 32 blocks of 4096 of a
+    speaker's clip, against the reloaded program with the same zero
+    embedding.  Returns the host's numbers."""
+    from rave_tpu_torch.data.audio_io import load_wav
+    from rave_tpu_torch.export import native
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    host = native.build_host(device)
+    build_s = time.perf_counter() - t0
+    out = run / "export"
+    x = load_wav(wavs[VC_SPEAKERS])[0].astype(np.float32)[
+        :NATIVE_VC_BLOCKS * VC_CHUNK].reshape(NATIVE_VC_BLOCKS, VC_CHUNK)
+    res, y, carry, pkg = serve_native(torch, np, out, "convert", x, host,
+                                      device)
+    n = n_caches(out / "convert_manifest.txt")
+    caches, _ = manifest_caches(torch, np, out / "convert_manifest.txt",
+                                out / "convert_cache_init.bin", n, device)
+    emb = torch.zeros(256, device=device)
+    prog = torch.export.load(out / "convert.pt2").module()
+    want, want_carry = program_blocks(torch, np, prog, caches, x, (emb,),
+                                      device)
+    res.update(hold_host(np, "convert", y, want, carry, want_carry))
+    x0 = torch.tensor(x[0].reshape(1, -1, 1), device=device)
+    res["profile"] = package_profile(torch, pkg, (caches, x0, emb))
+    res.update(host_build_s=build_s,
+               phase_seconds=time.perf_counter() - t_phase)
+    emit({"phase": "native", "step": "convert", "card": card,
+          "config": "v2_fork (phase 9's trained run)", "chunk": VC_CHUNK,
+          "chunk_ms_of_audio": VC_CHUNK / 44.1, **res})
+    return res
+
+
+def _refused(native, what, export_dir, prefix, host, want, device) -> str:
+    """The host on a step it must refuse: it exits 1 naming ``want``;
+    returns its message."""
+    try:
+        native.run_host(export_dir, 2, prefix, device, host=host)
+    except RuntimeError as e:
+        msg = str(e)
+        check(msg.startswith("aoti_host exited 1:") and want in msg,
+              f"{what}: {msg}")
+        return msg.splitlines()[-1]
+    check(False, f"{what}: the host served it")
+
+
+def _export_copy(src, dst, prefix, package=True):
+    """The manifests and initial caches of ``src`` under ``dst``, and its
+    ``prefix`` package linked there with ``package``."""
+    shutil.rmtree(dst, ignore_errors=True)
+    dst.mkdir(parents=True)
+    for p in src.iterdir():
+        if p.name.endswith(("_manifest.txt", "io_manifest.txt",
+                            "cache_init.bin")):
+            shutil.copy(p, dst / p.name)
+    if package:
+        (dst / f"{prefix}.aoti.pt2").symlink_to(
+            (src / f"{prefix}.aoti.pt2").resolve())
+
+
+def phase_native(torch, np, KERNELS, state, audio, pitch_dir, convert_res,
+                 card, device="cuda"):
+    """(a), (c) and (d) of the native phase (see the module docstring),
+    then its summary line beside (b)'s numbers ``convert_res``."""
+    from pathlib import Path
+    from rave_tpu_torch.config import build_config
+    from rave_tpu_torch.export import native
+    from rave_tpu_torch.export.streaming import StreamingRAVE
+    from rave_tpu_torch.models.rave import RAVE
+    from rave_tpu_torch.ops.pitch import yin_f0
+
+    t_phase = time.perf_counter()
+    for k in KERNELS:
+        k.launches = 0
+    root = Path(SMOKE_DIR)
+    host = native.build_host(device)
+    # (d)'s CPU package: a tiny v2 exported on the CPU, compiled in a
+    # subprocess while the card's packages compile here
+    tiny = root / "native_cpu"
+    tcfg = build_config(["v2"], NATIVE_CPU_TINY)
+    torch.manual_seed(SEED)
+    StreamingRAVE(tcfg, RAVE(tcfg, device="cpu").state_dict(),
+                  chunk_size=CHUNK, device="cpu").serialize(tiny)
+    cpu_compile = subprocess.Popen(
+        [sys.executable, "-c", "import sys; from rave_tpu_torch.export."
+         "native import compile_package; compile_package(sys.argv[1], "
+         "'forward', 'cpu')", str(tiny)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        # (a) forward of full-width v2, 64 blocks of 2048
+        cfg = build_config(["v2"], ["fused_kernels=true"])
+        sr = StreamingRAVE(cfg, state, chunk_size=CHUNK, device=device)
+        exp = root / "native_v2"
+        t0 = time.perf_counter()
+        sr.serialize(exp)
+        serialize_s = time.perf_counter() - t0
+        signal = audio[0, :NATIVE_BLOCKS * CHUNK].astype(np.float32)
+        x = signal.reshape(NATIVE_BLOCKS, CHUNK)
+        fwd, y, carry, fwd_pkg = serve_native(torch, np, exp, "forward", x,
+                                              host, device)
+        want = sr.process_file(signal).reshape(NATIVE_BLOCKS, CHUNK)
+        live = np.concatenate([c.reshape(-1).cpu().numpy()
+                               for c in sr.caches])
+        fwd.update(hold_host(np, "forward", y, want, carry, live))
+        fwd["serialize_s"] = serialize_s
+        per = {"graph": [], "eager": []}
+        sr.process_file_scan(signal)    # captures the chunk step
+        for _ in range(3):
+            for name, fn in (("graph", sr.process_file_scan),
+                             ("eager", sr.process_file)):
+                t0 = time.perf_counter()
+                fn(signal)
+                per[name].append((time.perf_counter() - t0) * 1e3
+                                 / NATIVE_BLOCKS)
+        fwd["same_call_python_ms_per_chunk"] = {
+            "process_file_scan": statistics.median(per["graph"]),
+            "process_file": statistics.median(per["eager"]), "runs": per}
+        caches, _ = manifest_caches(torch, np, exp / "io_manifest.txt",
+                                    exp / "cache_init.bin",
+                                    len(sr.init_caches), device)
+        x0 = torch.tensor(x[:1, :, None], device=device)
+        fwd["profile"] = package_profile(torch, fwd_pkg, (caches, x0))
+        with torch.no_grad():
+            fwd["eager_step_profile"] = device_profile(
+                torch, lambda: sr._forward(caches, x0))
+        emit({"phase": "native", "step": "forward", "card": card,
+              "config": "v2", "chunk": CHUNK,
+              "chunk_ms_of_audio": CHUNK / cfg.sampling_rate * 1e3, **fwd})
+        del sr
+
+        # (c) convert_pg of the full-width pitch fork (phase 11's
+        # converter) on a gliding voice, 32 blocks of 4096
+        voice = glides(np, PITCH_SPEAKERS, 2 * PITCH_CLIP)[0]
+        x = voice[:NATIVE_VC_BLOCKS * VC_CHUNK].reshape(NATIVE_VC_BLOCKS,
+                                                        VC_CHUNK)
+        f0 = yin_f0(torch.tensor(x.reshape(1, -1), device=device),
+                    44100).cpu().numpy()
+        pg, y, carry, pg_pkg = serve_native(torch, np, pitch_dir,
+                                            "convert_pg", x, host, device)
+        manifest = pitch_dir / "convert_pg_manifest.txt"
+        carry0, _ = manifest_caches(torch, np, manifest,
+                                    pitch_dir / "convert_pg_cache_init.bin",
+                                    n_caches(manifest), device)
+        emb = torch.zeros(256, device=device)
+        prog = torch.export.load(pitch_dir / "convert_pg.pt2").module()
+        want, want_carry = program_blocks(torch, np, prog, carry0, x, (emb,),
+                                          device)
+        pg.update(hold_host(np, "convert_pg", y, want, carry, want_carry))
+        tail = carry0[-1].numel()
+        check(np.array_equal(carry[-tail:], want_carry[-tail:])
+              and np.array_equal(carry[-tail:], x[-1, -tail:]),
+              "convert_pg: the host's f0 tail is not the program's")
+        pg["voiced_share"] = float((f0 > 0).mean())
+        check(pg["voiced_share"] > 0.5, f"convert_pg: voiced {f0}")
+        x0 = torch.tensor(x[:1, :, None], device=device)
+        pg["profile"] = package_profile(torch, pg_pkg, (carry0, x0, emb))
+        emit({"phase": "native", "step": "convert_pg", "card": card,
+              "config": "v2_fork+pitch", "chunk": VC_CHUNK,
+              "chunk_ms_of_audio": VC_CHUNK / 44.1, "f0_tail_equal": True,
+              **pg})
+
+        # (d) what the host must refuse
+        check(cpu_compile.wait(timeout=NATIVE_TIMEOUT) == 0,
+              f"CPU package: {cpu_compile.stdout.read()[-2000:]}")
+        refusals = {"cpu_package_on_cuda": _refused(
+            native, "a CPU package on the card", tiny, "forward", host,
+            "compiled for cpu, not for device=cuda", device)}
+        _export_copy(exp, root / "native_missing", "forward", package=False)
+        refusals["missing_package"] = _refused(
+            native, "a missing package", root / "native_missing", "forward",
+            host, "cannot open", device)
+        perm = root / "native_permuted"
+        _export_copy(exp, perm, "forward")
+        lines = (perm / "io_manifest.txt").read_text().splitlines()
+        outs = [ln for ln in lines if ln.startswith("out ")]
+        (perm / "io_manifest.txt").write_text("\n".join(
+            [ln for ln in lines if not ln.startswith("out ")]
+            + outs[1:] + outs[:1]) + "\n")
+        refusals["permuted_out_lines"] = _refused(
+            native, "a permuted manifest", perm, "forward", host,
+            "output 0 has shape", device)
+    finally:
+        if cpu_compile.poll() is None:
+            cpu_compile.kill()
+            cpu_compile.wait()
+    emit({"phase": "native", "step": "refusals", "card": card, **refusals})
+
+    launches = {k.name: k.launches for k in KERNELS}
+    check(not any(launches.values()), f"native phase launched {launches}")
+    b1 = {s: r["profile"]["named_count"]["residual_unit"]
+          for s, r in (("forward", fwd), ("convert", convert_res),
+                       ("convert_pg", pg))}
+    check(not any(b1.values()), f"B1 in a package: {b1}")
+    keys = ("compile_s", "package_mb", "loaded_s", "pipelined_rtf",
+            "blocking_rtf", "block_ms_p50", "block_ms_p80",
+            "max_abs_err_vs_program", "proxy_ops")
+    emit({"phase": "native", "card": card, "b1_launches_per_block": 0,
+          "b1_kernels_per_package_block": b1, "python_launches": launches,
+          "steps": {s: {**{k: r[k] for k in keys},
+                        "kernels_per_block": r["profile"]["kernel_count"],
+                        "device_ms_per_block": r["profile"]["device_ms"]}
+                    for s, r in (("forward", fwd), ("convert", convert_res),
+                                 ("convert_pg", pg))},
+          "eager_step_kernels": fwd["eager_step_profile"]["kernel_count"],
+          "phase_seconds": time.perf_counter() - t_phase})
 
 
 def main() -> int:
@@ -2287,12 +2591,19 @@ def main() -> int:
     phase_export_stream(torch, np, KERNELS, model.state_dict(), audio,
                         model, x, smi)
     phase_export_run(torch, np, run, db, wavs, smi)
+    # 12(b). the trained run's convert.pt2 served by the C++ host
+    native_convert = phase_native_convert(torch, np, run, wavs, smi)
     shutil.rmtree(SMOKE_DIR)
 
     # 11. the f0-conditioned fork: convert, FCPE, train, stream, probe
-    pitch_convert, pitch_train = phase_pitch(torch, np, KERNELS)
+    pitch_convert, pitch_train, pitch_dir = phase_pitch(torch, np, KERNELS)
 
-    # 12. summary
+    # 12. native: forward, convert_pg and the refusals of the C++ host
+    phase_native(torch, np, KERNELS, model.state_dict(), audio, pitch_dir,
+                 native_convert, smi)
+    shutil.rmtree(SMOKE_DIR)
+
+    # 13. summary
     def total(key, path="offline_v2"):
         return sum(s[key] * s["launches_per_call"] for s in shapes
                    if s["path"] == path)

@@ -53,6 +53,23 @@ F0_FRAME = 2048     # YIN frame of the streamed f0
 RESERVOIR = 500     # voiced log-f0 values the streamed statistics keep
 
 
+class PitchCarryStep(torch.nn.Module):
+    """``convert_pg``'s call convention over the pitch step ``step``
+    (``(caches, f0_tail, x, emb) -> ((y, f0_tail), caches)``): ``(carry,
+    x, emb) -> (y, carry)``, ``carry`` the caches then the f0 tail.  Its
+    flat inputs and outputs are the JAX package's (whose carry ``{"cache",
+    "f0_tail"}`` flattens to the caches, then the tail), so that a host
+    feeds every output but ``y`` back in, in order."""
+
+    def __init__(self, step: StreamStep):
+        super().__init__()
+        self.step = step
+
+    def forward(self, carry: list, x: torch.Tensor, emb: torch.Tensor):
+        (y, tail), caches = self.step(carry[:-1], carry[-1], x, emb)
+        return y, [*caches, tail]
+
+
 class VoiceConverter:
     """Stateful chunked voice conversion around a streaming fork model.
 
@@ -110,8 +127,8 @@ class VoiceConverter:
                     yin_f0, sr=cfg.sampling_rate,
                     frame_length=F0_FRAME, hop=self._f0_hop,
                     fmin=cfg.pitch_fmin, fmax=cfg.pitch_fmax)
-            self._convert_pg = StreamStep(self.model, self._convert_pg_chunk,
-                                          mods)
+            self._convert_pg = PitchCarryStep(
+                StreamStep(self.model, self._convert_pg_chunk, mods))
             self._reset_pitch()
 
     def _reset_pitch(self) -> None:
@@ -306,11 +323,11 @@ class VoiceConverter:
         * ``convert_manifest.txt`` and ``convert_cache_init.bin`` (the
           JAX package's call convention), ``convert_meta.json``;
         * ``speaker_table.npy``;
-        * for a pitch config, ``convert_pg.pt2``: ``(caches, f0_tail, x,
-          emb) -> (y, caches, f0_tail)`` with f0 computed in the program
-          (``f0_tail`` ``(1, 1024)``, zeros at the start), and its
-          ``convert_pg_manifest.txt`` and ``convert_pg_cache_init.bin``
-          (the caches, then the tail).
+        * for a pitch config, ``convert_pg.pt2``: ``(carry, x, emb) ->
+          (y, carry)``, ``carry`` the caches then the f0 tail ``(1,
+          1024)`` (zeros at the start), with f0 computed in the program
+          (:class:`PitchCarryStep`), and its ``convert_pg_manifest.txt``
+          and ``convert_pg_cache_init.bin`` (the caches, then the tail).
         """
         out = Path(out_dir)
         out.mkdir(parents=True, exist_ok=True)
@@ -331,13 +348,14 @@ class VoiceConverter:
                        chunk=st.chunk, sampling_rate=cfg.sampling_rate,
                        batch=1)
         if self._pitch:
-            tail = torch.zeros(1, self._tail_len, device=self.device)
+            carry = [*caches,
+                     torch.zeros(1, self._tail_len, device=self.device)]
             with torch.no_grad():
-                export_step(self._convert_pg, (caches, tail, x, emb),
+                export_step(self._convert_pg, (carry, x, emb),
                             out / "convert_pg.pt2")
-                (y, tail2), new = self._convert_pg(caches, tail, x, emb)
-            write_manifest(out, "convert_pg", [*caches, tail, x, emb],
-                           [y, *new, tail2], [*caches, tail], chunk=st.chunk,
+                y, new = self._convert_pg(carry, x, emb)
+            write_manifest(out, "convert_pg", [*carry, x, emb], [y, *new],
+                           carry, chunk=st.chunk,
                            sampling_rate=cfg.sampling_rate, batch=1)
         meta = dict(chunk_size=st.chunk, sampling_rate=cfg.sampling_rate,
                     speaker_embedding_size=cfg.speaker_embedding_size,

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import resolve_device
 from ..ops.pitch import resize_linear
 from ..ops.stft import _pad_reflect, hann_window, mel_filterbank
 
@@ -307,8 +308,9 @@ _CACHE: dict = {}
 _MODULES: dict = {}
 
 
-def get_fcpe(path: str, device="cpu") -> Optional[FCPE]:
-    """The frozen FCPE of the checkpoint at ``path`` on ``device``, read
+def get_fcpe(path: str, device="cuda") -> Optional[FCPE]:
+    """The frozen FCPE of the checkpoint at ``path`` on ``device`` (the
+    card unless the caller asks for another; raises without CUDA), read
     once per process; None for an empty path, and for a missing one with
     a warning the first time (the caller then takes YIN)."""
     if not path:
@@ -322,7 +324,7 @@ def get_fcpe(path: str, device="cpu") -> Optional[FCPE]:
             _CACHE[path] = load_fcpe_checkpoint(path)
     if _CACHE[path] is None:
         return None
-    device = torch.device(device)
+    device = resolve_device(device)
     key = (path, str(device))
     if key not in _MODULES:
         model = FCPE()

@@ -12,8 +12,10 @@ Every exported launcher returns the ``cudaError_t`` of its launch;
 :meth:`CudaKernel.launch` raises on anything but success and counts the
 launches that went through.
 
-Host C++ sources (no CUDA) build the same way with ``g++``
-(:func:`build_host_library`).
+Host C++ sources build the same way with ``g++``: a library with a plain
+C interface (:func:`build_host_library`), or a program against the
+installed libtorch (:func:`build_host_program`, the flags from
+``export/native.py``).
 """
 
 from __future__ import annotations
@@ -155,20 +157,29 @@ def build_all(kernels: Sequence[CudaKernel]) -> float:
 
 def build_host_library(source: str) -> Path:
     """The path of ``csrc/<source>`` compiled by ``g++`` into a shared
-    library under ``_build/``, named by a hash of the source and flags
-    and written under a temporary name, then renamed, so that two builds
-    at once do not collide.  Raises with the compiler's output if the
-    build fails."""
+    library under ``_build/`` (see :func:`build_host_program`)."""
+    src = CSRC_DIR / source
+    return build_host_program(source, GXX_FLAGS, f"lib{src.stem}", ".so")
+
+
+def build_host_program(source: str, flags: Sequence[str], name: str,
+                       suffix: str = "") -> Path:
+    """The path of ``csrc/<source>`` compiled by ``g++`` with ``flags``
+    (placed after the source, so that they may name libraries) into
+    ``_build/<name>-<hash><suffix>``, the hash of the source and flags,
+    written under a temporary name, then renamed, so that two builds at
+    once do not collide.  Raises with the compiler's output if the build
+    fails."""
     src = CSRC_DIR / source
     h = hashlib.sha1(src.read_bytes()
-                     + " ".join(GXX_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"lib{src.stem}-{h}.so"
+                     + " ".join(flags).encode()).hexdigest()[:12]
+    out = BUILD_DIR / f"{name}-{h}{suffix}"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    r = subprocess.run([os.environ.get("CXX", "g++"), *GXX_FLAGS, "-o",
-                        str(tmp), str(src)], capture_output=True, text=True)
+    tmp = BUILD_DIR / f"{out.name}.{os.getpid()}.tmp"
+    r = subprocess.run([os.environ.get("CXX", "g++"), str(src), *flags,
+                        "-o", str(tmp)], capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(f"g++ failed for {source} (exit {r.returncode}):"
                            f"\n{r.stdout}{r.stderr}")

@@ -105,13 +105,16 @@ def test_input_gradient_matches(combine):
         return sum(jnp.mean(f.astype(jnp.float32) ** 2)
                    for chain in feats for f in chain)
 
-    def jscalar(x):
+    def jscalar(x, params):
         feats = jdisc.apply({"params": params}, x)
         feats = [[f.unpack() if isinstance(f, jd.PackedFeature) else f
                   for f in chain] for chain in feats]
         return scalar(x, feats)
 
-    want = np.asarray(jax.jit(jax.grad(jscalar))(jnp.asarray(combine["x"])))
+    # the weights are an argument, not constants of the program (XLA
+    # would fold through them for half a minute while compiling)
+    want = np.asarray(jax.jit(jax.grad(jscalar))(jnp.asarray(combine["x"]),
+                                                 params))
     x = torch.from_numpy(combine["x"].transpose(0, 2, 1).copy())
     x.requires_grad_(True)
     sum(torch.mean(f ** 2) for chain in combine["disc"](x)

@@ -262,6 +262,18 @@ def test_missing_checkpoint_warns_and_takes_yin():
     assert tf.get_fcpe("") is None
 
 
+def test_get_fcpe_defaults_to_the_card(ckpt):
+    """``get_fcpe`` without a device asks for the card, as the port's
+    other entry points do: on a machine without CUDA it raises, and the
+    CPU is taken only when asked for."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    _, path, _, _ = ckpt
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tf.get_fcpe(path)
+    assert next(tf.get_fcpe(path, "cpu").parameters()).device.type == "cpu"
+
+
 def test_pitch_feature_fcpe_route_matches_jax(ckpt):
     """``pitch_feature`` through the checkpoint: f0 at one frame per hop,
     per-utterance statistics."""

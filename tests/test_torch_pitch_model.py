@@ -87,16 +87,19 @@ def test_encode_forward_convert_match_jax(fork):
         z = fork.model.encode(xt).numpy()
         y = fork.model(xt).numpy()
         yc = fork.model.convert(xt, torch.from_numpy(tgt)).numpy()
-    jz = np.asarray(fork.m.apply(fork.variables, jnp.asarray(x),
-                                 method=JRAVE.encode))
+    # one compiled program each, the variables an argument (eagerly,
+    # every operation of the model compiles on its own)
+    apply = jax.jit(fork.m.apply, static_argnames="method")
+    jz = np.asarray(apply(fork.variables, jnp.asarray(x),
+                          method=JRAVE.encode))
     assert z.shape == jz.shape == (2, 128, fork.cfg.decoder_latent_size())
     # the pitch channel carries f0 (voiced frames), not zeros
     assert np.abs(z[..., -1]).max() > 0.1
     np.testing.assert_allclose(z, jz, atol=ATOL)
-    jy = np.asarray(fork.m.apply(fork.variables, jnp.asarray(x)))
+    jy = np.asarray(apply(fork.variables, jnp.asarray(x)))
     np.testing.assert_allclose(y, jy, atol=ATOL)
-    jyc = np.asarray(fork.m.apply(fork.variables, jnp.asarray(x),
-                                  jnp.asarray(tgt), method=JRAVE.convert))
+    jyc = np.asarray(apply(fork.variables, jnp.asarray(x), jnp.asarray(tgt),
+                           method=JRAVE.convert))
     np.testing.assert_allclose(yc, jyc, atol=ATOL)
 
 
@@ -175,9 +178,10 @@ def test_serialize_convert_pg_matches_live_and_jax(fork, jax_vc, tmp_path):
     from jax import export as jexport
     jprog = jexport.deserialize((jout / "convert_pg.stablehlo").read_bytes())
     prog = torch.export.load(out / "convert_pg.pt2").module()
-    caches = [torch.zeros_like(c) for c in ts.stream.init_caches]
-    live = [torch.zeros_like(c) for c in ts.stream.init_caches]
-    tail = live_tail = torch.zeros(1, 1024)
+    # the carry: the caches, then the f0 tail, in and out
+    carry = [*(torch.zeros_like(c) for c in ts.stream.init_caches),
+             torch.zeros(1, 1024)]
+    live = [c.clone() for c in carry]
     jcarry = {"cache": jax.tree.map(jnp.zeros_like, jax_vc.init_cache),
               "f0_tail": jnp.zeros((1, 1024), jnp.float32)}
     emb = torch.from_numpy(TABLE[2])
@@ -185,14 +189,16 @@ def test_serialize_convert_pg_matches_live_and_jax(fork, jax_vc, tmp_path):
     with torch.no_grad():
         for i in range(0, 4 * CHUNK, CHUNK):
             xc = torch.from_numpy(x[:, i:i + CHUNK])
-            (y, tail), caches = prog(caches, tail, xc, emb)
-            (yl, live_tail), live = ts._convert_pg(live, live_tail, xc, emb)
+            y, carry = prog(carry, xc, emb)
+            yl, live = ts._convert_pg(live, xc, emb)
             np.testing.assert_allclose(y.numpy(), yl.numpy(), atol=1e-6)
             jy, jcarry = jprog.call(jcarry, jnp.asarray(xc.numpy()),
                                     jnp.asarray(TABLE[2]))
             np.testing.assert_allclose(y.numpy(), np.asarray(jy), atol=ATOL)
-            np.testing.assert_array_equal(tail.numpy(),
+            np.testing.assert_array_equal(carry[-1].numpy(),
                                           np.asarray(jcarry["f0_tail"]))
+            np.testing.assert_array_equal(live[-1].numpy(),
+                                          carry[-1].numpy())
 
 
 def test_streaming_rave_pitch_matches_jax(fork):

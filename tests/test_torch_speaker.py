@@ -51,8 +51,10 @@ def test_speaker_embedding_matches(jax_fork):
         params[name]["bias"] = (0.1 * rng.standard_normal(n)).astype(
             np.float32)
     stats = _randomise_stats(jax.tree.map(np.asarray, v["batch_stats"]), 1)
-    want = np.asarray(jspk.apply({"params": params, "batch_stats": stats},
-                                 jnp.asarray(bands)))
+    # compiled once, the variables an argument (eagerly, every
+    # operation compiles on its own)
+    want = np.asarray(jax.jit(jspk.apply)(
+        {"params": params, "batch_stats": stats}, jnp.asarray(bands)))
 
     # load through the RAVE converter: the speaker subtree of a fork model
     model = RAVE(build_config(["v2_fork"], TINY), device="cpu")
@@ -95,16 +97,17 @@ def test_fork_encode_forward_and_units_match(jax_fork):
     v = {"params": params, "batch_stats": stats}
     x = (0.3 * np.random.default_rng(4).standard_normal((2, 8192, 1))
          ).astype(np.float32)
-    z_j = np.asarray(jax.jit(lambda a: m.apply(v, a, method=JRAVE.encode))(
-        jnp.asarray(x)))
-    y_j = np.asarray(jax.jit(lambda a: m.apply(v, a))(jnp.asarray(x)))
+    # the variables are an argument, not constants of the programs
+    z_j = np.asarray(jax.jit(lambda v, a: m.apply(v, a, method=JRAVE.encode))(
+        v, jnp.asarray(x)))
+    y_j = np.asarray(jax.jit(lambda v, a: m.apply(v, a))(v, jnp.asarray(x)))
 
-    def units(a):
+    def units(v, a):
         bands = m.apply(v, a, method=JRAVE.pqmf_forward)
         z = m.apply(v, a, bands, method=JRAVE.encode_input)
         return m.apply(v, z, 37, method=JRAVE.project_units)
 
-    u_j = np.asarray(jax.jit(units)(jnp.asarray(x)))
+    u_j = np.asarray(jax.jit(units)(v, jnp.asarray(x)))
 
     model = RAVE(build_config(["v2_fork"], TINY), device="cpu")
     load_flax_params(model, params, stats)

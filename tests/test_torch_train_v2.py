@@ -236,19 +236,21 @@ def test_generator_gradient_matches():
     rng = jax.random.PRNGKey(1)
     jmodel, jdisc = jloop.RAVE(cfg=jcfg), jloop.build_discriminator(jcfg)
 
-    def jloss(gen_params):
+    def jloss(gen_params, dis_params, model_state, x, step):
         out = jloop._forward_losses(
-            jcfg, jmodel, jdisc, gen_params, jstate.dis_params,
-            jstate.model_state, {"x": jnp.asarray(x)},
-            jax.random.fold_in(rng, jstate.step), jstate.step)
-        _, adv, fm = jloop._gan_terms(jcfg, jdisc, jstate.dis_params,
+            jcfg, jmodel, jdisc, gen_params, dis_params, model_state,
+            {"x": x}, jax.random.fold_in(rng, step), step)
+        _, adv, fm = jloop._gan_terms(jcfg, jdisc, dis_params,
                                       out["x"], out["y"])
         terms = {**out["dists"], "adversarial": adv, "feature_matching": fm,
                  "regularization": out["reg"] * jcfg.beta_target}
         return sum(v * jcfg.weights.get(k, 1.0) for k, v in terms.items())
 
+    # the state and the batch are arguments, not constants of the program
     want = RAVE(cfg, device="cpu")
-    load_flax_params(want, _np(jax.jit(jax.grad(jloss))(jstate.gen_params)))
+    load_flax_params(want, _np(jax.jit(jax.grad(jloss))(
+        jstate.gen_params, jstate.dis_params, jstate.model_state,
+        jnp.asarray(x), jstate.step)))
     want = dict(want.named_parameters())
     state = _port_state(cfg, jstate, step)
     eps = _jax_eps(rng, step, jcfg).transpose(0, 2, 1).copy()

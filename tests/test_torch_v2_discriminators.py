@@ -153,7 +153,7 @@ def test_feature_matching_matches(combine, relative):
 def test_input_gradient_matches(combine):
     jdisc, params = combine["jdisc"], combine["params"]
 
-    def jscalar(x):
+    def jscalar(x, params):
         feats = jdisc.apply({"params": params}, x)
         return sum(jnp.mean(_unpack_traced(f) ** 2)
                    for chain in feats for f in chain)
@@ -161,7 +161,10 @@ def test_input_gradient_matches(combine):
     def _unpack_traced(f):
         return f.unpack() if isinstance(f, jd.PackedFeature) else f
 
-    want = np.asarray(jax.jit(jax.grad(jscalar))(jnp.asarray(combine["x"])))
+    # the weights are an argument, not constants of the program (XLA
+    # would fold through them while compiling)
+    want = np.asarray(jax.jit(jax.grad(jscalar))(jnp.asarray(combine["x"]),
+                                                 params))
     x = _torch_x(combine["x"]).requires_grad_(True)
     sum(torch.mean(f ** 2) for chain in combine["disc"](x)
         for f in chain).backward()

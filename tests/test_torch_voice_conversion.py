@@ -204,8 +204,8 @@ def test_offline_convert_matches(fork, norm):
     f = fork(norm)
     v = voices(4, 8192, seed=4)[:, :, None]
     x, target = v[:2], v[2:]
-    want = np.asarray(jax.jit(lambda a, b: f.m.apply(
-        f.variables, a, b, method=JRAVE.convert))(x, target))
+    want = np.asarray(jax.jit(lambda v, a, b: f.m.apply(
+        v, a, b, method=JRAVE.convert))(f.variables, x, target))
     with torch.no_grad():
         got = f.model.convert(torch.from_numpy(x),
                               torch.from_numpy(target)).numpy()
