@@ -147,7 +147,44 @@ the last line:
    ``convert_pg.pt2`` over 8 chunks against the live in-graph step
    within 2e-4.  (e) ``measure_receptive_field`` of the conv stacks on
    the card equal to the CPU's, inside ``receptive_field_frames``' crop.
-12. native: the exported steps served by the C++ host
+12. discrete_v3: the residual-VQ and v3 presets at full width.  (a)
+   ``discrete`` with ``fused_kernels=true`` (16 quantizers x 1024 codes,
+   latent 128, capacity 96; random weights from seed 0), its codebooks
+   from one k-means-init train pass over 4 synthetic voices x 131072:
+   the offline forward of that batch (kernel B1 exactly 6 launches, its
+   384-channel units), fused vs plain (audio 2e-4; RVQ indices: at least
+   99.9 % equal, each that differs between two codes equally near within
+   1e-4), card vs CPU on 8192 samples (the same), CUDA-event median batch
+   time, RTF, peak memory and a profile (B1's share and count); request 0
+   streamed in 2048-sample chunks through ``encode_indices`` then
+   ``decode_indices`` (no B1), against the offline output shifted by the
+   streaming delay (median relative error < 0.02), chunk latency median
+   and p80; ``serialize`` and the reloaded ``forward.pt2`` against the
+   live stream over 4 chunks (2e-4).  D, G, G, G at 8 x 131072 from
+   ``phase_1_duration`` (B1 6 launches per D and per G step, metrics
+   finite), three timed cycles, the codebooks finite; a D, G pair at
+   4 x 65536 from zero codebooks, card vs CPU (one thread, the same
+   random rows on both, ``learning_rate=1e-6``): losses, ENC/DEC
+   gradient norms and the D step's DIS gradient norm rtol 1e-3, the
+   codebook buffers after each step rtol 1e-4; one D step at the
+   preset's rate on 1 x 65536, card vs CPU, 99.9 % of the
+   discriminator's parameters within 1 % of the rate.  (b) ``v3``
+   (Snake, AdaIN, Descript discriminator; no B1): the offline forward
+   of 4 x 131072, card vs CPU on 8192 samples
+   (2e-4), batch time; the AdaIN controls workflow (a plain stream,
+   target statistics from a louder voice, source statistics, the
+   transfer from fresh caches; 16 chunks of 2048 each) card vs CPU
+   chunk by chunk and in the final AdaIN state (2e-4), the transfer
+   differing from the plain stream; the same workflow through
+   ``process_file_scan``'s CUDA graph (which starts from and updates
+   the live AdaIN state) against the eager one (2e-4).  D, G, G, G at
+   8 x 131072, three timed cycles, a profile of one G step and the
+   Descript discriminator's device time (forward
+   and data gradient on the cropped batch, frozen, as a G step runs it)
+   against it; one G step at
+   1 x 65536 (``log_epsilon=1e-3``) card vs CPU, rtol 1e-3.  (c)
+   ``discrete_v3``: a D, G pair card vs CPU as in (a).
+13. native: the exported steps served by the C++ host
    (``csrc/aoti_host.cpp``, built once with ``g++`` against libtorch) from
    AOTInductor packages (``export/native.py``), one CUDA graph replay per
    block, no Python.  (a) The offline phase's v2 weights, ``serialize``
@@ -2130,6 +2167,610 @@ def phase_pitch(torch, np, KERNELS, device="cuda"):
     return convert_launches, train_launches, out_dir
 
 
+# discrete_v3: the residual-VQ and v3 presets at full width; kernel B1 at
+# C = 384 inside the discrete forward and train steps
+INDEX_SHARE = 0.999      # card vs cpu: the share of equal RVQ indices
+INDEX_GAP = 1e-4         # a differing index: its two codes' distances
+                         # from the residual within this share
+BOOK_RTOL = 1e-4         # card vs cpu codebook buffers after a step
+STREAM_CHUNKS = 16       # 2048-sample chunks per stage of the AdaIN workflow
+# the card-vs-CPU D, G pairs run at learning_rate 1e-6: the hinge loss
+# gives each score conv's bias a gradient of rounding noise only, which
+# Adam's first step turns into a move of +-lr in a direction each device
+# draws differently; at 1e-4 the following G step's GAN terms differ by
+# ~1e-3 (ROADMAP C; tests/test_torch_discrete.py)
+PAIR_OVER = ["n_signal=65536", "batch_size=4", "learning_rate=1e-6"]
+D_STEP_SHARE = 0.999     # of the discriminator's parameters, card vs CPU,
+                         # after one D step at the preset's rate
+
+
+def rows_sampler(torch, np):
+    """The RVQ's random rows (k-means seeds, fresh codes) by a rule of
+    the row counts alone, so that the card and the CPU draw the same."""
+    def sampler(samples, num):
+        n = samples.shape[0]
+        idx = np.random.RandomState(1000 * n + num).randint(0, n, num)
+        return samples[torch.from_numpy(idx).to(samples.device)]
+    return sampler
+
+
+def index_gaps(torch, model, z, got, want) -> dict:
+    """RVQ indices ``got`` against ``want`` (``(B, N, T)``) for the
+    pre-quantization latent ``z`` ``(B, D, T)`` of ``model``: the share
+    that agree and, over those that differ, the largest gap between the
+    two codes' squared distances from ``want``'s residual at that stage
+    (float64, relative to ``want``'s distance)."""
+    residual = z.double()
+    worst, same = 0.0, (got == want)
+    for i, layer in enumerate(model.latent.rvq.layers):
+        e = layer.codebook.embed.double()
+        r = residual.transpose(1, 2).reshape(-1, e.shape[1])
+        dist = ((r * r).sum(-1, keepdim=True) - 2 * r @ e.T
+                + (e * e).sum(-1)[None])
+        g, w = got[:, i].reshape(-1), want[:, i].reshape(-1)
+        n = torch.arange(len(g), device=g.device)
+        diff = g != w
+        if bool(diff.any()):
+            gap = ((dist[n, g] - dist[n, w]).abs()
+                   / dist[n, w].abs().clamp_min(1e-30))[diff]
+            worst = max(worst, float(gap.max()))
+        residual = residual - layer.decode(want[:, i]).double()
+    return {"share_equal": float(same.double().mean()),
+            "differing": int((~same).sum()), "max_rel_gap": worst}
+
+
+def check_indices(res, what) -> None:
+    check(res["share_equal"] >= INDEX_SHARE
+          and res["max_rel_gap"] <= INDEX_GAP, f"{what} indices: {res}")
+
+
+def codebooks(model) -> list:
+    return [{k: v.detach().clone() for k, v in
+             layer.codebook.state_dict().items()}
+            for layer in model.latent.rvq.layers]
+
+
+def codebook_err(torch, got, want) -> float:
+    """The largest excess of ``|got - want|`` over ``BOOK_RTOL`` of
+    ``want`` plus 1e-6, ``embed``'s atol divided by each code's smoothed
+    count (an unused code's ``embed`` is ``embed_avg`` over ~1e-5)."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        cs = w["cluster_size"].double().cpu()
+        n = cs.sum()
+        smoothed = (cs + 1e-5) / (n + len(cs) * 1e-5) * n
+        for k in g:
+            a, b = g[k].double().cpu(), w[k].double().cpu()
+            atol = 1e-6 / smoothed[:, None] if k == "embed" else 1e-6
+            worst = max(worst, float(((a - b).abs() - BOOK_RTOL * b.abs()
+                                      - atol).max()))
+    return worst
+
+
+def grad_norms(torch, st) -> dict:
+    return {g: float(torch.sqrt(sum((p.grad.double() ** 2).sum()
+                                    for p in ps)))
+            for g, ps in (("enc", st.enc_params), ("dec", st.dec_params))}
+
+
+def dis_grad_norm(torch, st) -> float:
+    """The norm of the discriminator's gradient, which a D step leaves in
+    ``.grad`` (a G step differentiates the generator only)."""
+    return float(torch.sqrt(sum((p.grad.double() ** 2).sum()
+                                for p in st.disc.parameters())))
+
+
+def card_vs_cpu_pair(torch, np, stack, over, counts, reset, device="cuda"):
+    """A D, G pair of ``stack`` with ``over`` at 4 x 65536 (``PAIR_OVER``)
+    from one seeded state with zero codebooks on the card and on the CPU
+    (one thread), the same rows drawn on both: losses, ENC/DEC gradient
+    norms and the D step's DIS gradient norm within ``TRAIN_RTOL``,
+    codebook buffers after each step within :func:`codebook_err`.
+    Then one D step at the preset's learning rate
+    from the same start on 1 x 65536: at least ``D_STEP_SHARE`` of the
+    discriminator's parameters after it within 1 % of the rate (Adam's
+    first step moves an element whose gradient is rounding noise by up to
+    +-lr, in a direction each device draws differently).  Returns the
+    numbers."""
+    from rave_tpu_torch.config import build_config
+    from rave_tpu_torch.train import loop, schedules
+
+    short = build_config(stack, over + PAIR_OVER)
+    torch.manual_seed(SEED + 1)
+    card = loop.TrainState(short, device=device, step=short.phase_1_duration)
+    cpu = loop.TrainState(short, device="cpu", step=short.phase_1_duration)
+    start = ({k: v.cpu() for k, v in card.model.state_dict().items()},
+             {k: v.cpu() for k, v in card.disc.state_dict().items()})
+    cpu.model.load_state_dict(start[0])
+    cpu.disc.load_state_dict(start[1])
+    audio = voices(np, 4, short.n_signal, SEED + 2)
+    sb = {"x": torch.tensor(audio[:, :, None], dtype=torch.float32,
+                            device=device)}
+    fn, sampler = loop.make_train_step(short), rows_sampler(torch, np)
+    threads = torch.get_num_threads()
+    rel, book, launches = {}, {}, {}
+    for kind in ("D", "G"):
+        is_d = schedules.is_discriminator_step(card.step, short)
+        check(is_d == (kind == "D"), f"{stack} pair: step {card.step}")
+        reset()
+        m_card = {k: float(v) for k, v in fn(card, sb,
+                                             sampler=sampler).items()}
+        launches[kind] = counts()
+        torch.set_num_threads(1)
+        try:
+            m_cpu = {k: float(v) for k, v in fn(
+                cpu, {"x": sb["x"].cpu()}, sampler=sampler).items()}
+        finally:
+            torch.set_num_threads(threads)
+        rel.update({f"{kind}/{k}": abs(m_card[k] - m_cpu[k])
+                    / max(abs(m_cpu[k]), 1e-12) for k in m_cpu})
+        book[kind] = codebook_err(torch, codebooks(card.model),
+                                  codebooks(cpu.model))
+        check(book[kind] <= 0, f"{stack} pair codebooks after {kind}: "
+              f"{book[kind]}")
+    n_card, n_cpu = grad_norms(torch, card), grad_norms(torch, cpu)
+    rel.update({f"grad_norm_{g}": abs(n_card[g] - n_cpu[g]) / n_cpu[g]
+                for g in n_cpu})
+    n_card["dis"], n_cpu["dis"] = dis_grad_norm(torch, card), \
+        dis_grad_norm(torch, cpu)
+    rel["D/grad_norm_dis"] = abs(n_card["dis"] - n_cpu["dis"]) / n_cpu["dis"]
+    check(max(rel.values()) <= TRAIN_RTOL, f"{stack} card vs cpu: {rel}")
+    del card, cpu
+
+    # one D step at the preset's learning rate from the same start
+    preset = build_config(stack, over + PAIR_OVER[:-1])
+    d_after = []
+    for dev in (device, "cpu"):
+        st = loop.TrainState(preset, device=dev, step=preset.phase_1_duration)
+        st.model.load_state_dict(start[0])
+        st.disc.load_state_dict(start[1])
+        check(schedules.is_discriminator_step(st.step, preset),
+              f"{stack} preset-rate step {st.step}")
+        torch.set_num_threads(1 if dev == "cpu" else threads)
+        try:
+            loop.make_train_step(preset)(st, {"x": sb["x"][:1].to(dev)},
+                                         sampler=sampler)
+        finally:
+            torch.set_num_threads(threads)
+        d_after.append(torch.cat([p.detach().cpu().flatten()
+                                  for p in st.disc.parameters()]))
+        del st
+    share = float(((d_after[0] - d_after[1]).abs()
+                   <= 0.01 * preset.learning_rate).double().mean())
+    check(share >= D_STEP_SHARE, f"{stack} D step at the preset's rate: "
+          f"{share} of the discriminator within 1 % of the rate")
+    return {"overrides": over + PAIR_OVER, "rel_err": rel,
+            "grad_norms_card": n_card, "grad_norms_cpu": n_cpu,
+            "codebook_excess": book, "launches": launches,
+            "preset_rate_d_step": {"learning_rate": preset.learning_rate,
+                                   "batch": [1, preset.n_signal, 1],
+                                   "share_within_1pct_of_rate": share}}
+
+
+def train_cycles(torch, np, st, fn, batch, expect, counts, reset, what,
+                 cycles=3):
+    """One D, G, G, G cycle from the state's step with ``expect``
+    launches on every step and finite metrics, then ``cycles`` timed ones:
+    median D and G ms, audio seconds per second and peak memory."""
+    from rave_tpu_torch.train import schedules
+    kind_of = lambda: ("D" if schedules.is_discriminator_step(  # noqa: E731
+        st.step, st.cfg) else "G")
+    warm = []
+    for _ in range(4):
+        kind = kind_of()
+        reset()
+        values = {k: float(v) for k, v in fn(st, batch).items()}
+        torch.cuda.synchronize()
+        check(counts() == expect, f"{what} {kind} step launches {counts()}")
+        check(all(np.isfinite(v) for v in values.values()),
+              f"{what} {kind} step metrics {values}")
+        warm.append({"kind": kind, "metrics": values})
+    check([c["kind"] for c in warm] == list("DGGG"), f"{what} cycle {warm}")
+    times = {"D": [], "G": []}
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(cycles * 4):
+        kind = kind_of()
+        times[kind].append(cuda_ms(torch, lambda: fn(st, batch), iters=1,
+                                   warmup=0))
+    d_ms, g_ms = statistics.median(times["D"]), statistics.median(times["G"])
+    audio_s = batch["x"].shape[0] * batch["x"].shape[1] / 44100
+    return {"warmup_cycle": warm, "d_step_ms": d_ms, "g_step_ms": g_ms,
+            "d_step_ms_all": times["D"], "g_step_ms_all": times["G"],
+            "audio_s_per_s": 4 * audio_s / ((d_ms + 3 * g_ms) / 1e3),
+            "peak_mem_mb": torch.cuda.max_memory_allocated() / 2 ** 20}
+
+
+def phase_discrete(torch, np, KERNELS, card, device="cuda"):
+    """(a) of phase discrete_v3 (see the module docstring).  Returns the
+    launches of each kernel per offline forward and per D and G step."""
+    from pathlib import Path
+    from rave_tpu_torch.config import build_config
+    from rave_tpu_torch.export.streaming import StreamingRAVE
+    from rave_tpu_torch.models.rave import RAVE
+    from rave_tpu_torch.train import loop
+
+    counts = lambda: {k.name: k.launches for k in KERNELS}  # noqa: E731
+
+    def reset():
+        for k in KERNELS:
+            k.launches = 0
+
+    t_phase = time.perf_counter()
+    cfg = build_config(["discrete"], ["fused_kernels=true"])
+    torch.manual_seed(SEED)
+    state = loop.TrainState(cfg, device=device, step=cfg.phase_1_duration,
+                            seed=SEED)
+    model = state.model
+    audio = voices(np, BATCH, SAMPLES)
+    x = torch.tensor(audio[:, :, None], dtype=torch.float32, device=device)
+    # codebooks: one k-means-init train pass over the batch's latents
+    with torch.no_grad():
+        z_pre = model.encode_input(model.pqmf_forward(x))
+        model.reparametrize(z_pre, generator=state.generator, train=True)
+    books = codebooks(model)
+    check(all(float(b["inited"]) == 1.0 and all(
+        bool(torch.isfinite(v).all()) for v in b.values()) for b in books),
+        "discrete k-means init: codebooks not inited or not finite")
+    plain = RAVE(build_config(["discrete"], ["fused_kernels=false"]),
+                 device=device)
+    plain.load_state_dict(model.state_dict())
+    cpu = RAVE(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+
+    with torch.inference_mode():
+        reset()
+        y = model(x)
+        torch.cuda.synchronize()
+        launches = counts()
+        check(launches == {"residual_unit": 6, "ci1_conv_forward": 0,
+                           "ci1_conv_dx": 0},
+              f"discrete forward launches {launches}")
+        check(tuple(y.shape) == tuple(x.shape) and bool(
+            torch.isfinite(y).all()), "discrete forward shape or values")
+        idx, idx_plain = model.encode_indices(x), plain.encode_indices(x)
+        fused_idx = index_gaps(torch, model, z_pre, idx_plain, idx)
+        check_indices(fused_idx, "discrete fused vs plain")
+        plain_err = (y - plain(x)).abs().max().item()
+        check(plain_err <= OFFLINE_TOL, f"discrete fused vs plain {plain_err}")
+        xs = x[:1, :8192]
+        cpu_err = (model(xs).cpu() - cpu(xs.cpu())).abs().max().item()
+        check(cpu_err <= CPU_TOL, f"discrete card vs cpu {cpu_err}")
+        cpu_idx = index_gaps(torch, cpu,
+                             cpu.encode_input(cpu.pqmf_forward(xs.cpu())),
+                             model.encode_indices(xs).cpu(),
+                             cpu.encode_indices(xs.cpu()))
+        check_indices(cpu_idx, "discrete card vs cpu")
+        torch.cuda.reset_peak_memory_stats()
+        times = [cuda_ms(torch, lambda: model(x), iters=1, warmup=0)
+                 for _ in range(10)]
+        peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+        prof = device_profile(torch, lambda: model(x),
+                              names=("residual_unit_kernel",))
+    prof["share"] = {n: ms / prof["device_ms"]
+                     for n, ms in prof["named_ms"].items()}
+    check(prof["named_count"]["residual_unit_kernel"] == 6,
+          f"discrete profile B1 kernels {prof['named_count']}")
+    audio_s = BATCH * SAMPLES / cfg.sampling_rate
+    batch_ms = statistics.median(times)
+    emit({"phase": "discrete_v3", "step": "discrete_offline", "card": card,
+          "config": "discrete", "overrides": ["fused_kernels=true"],
+          "params": sum(p.numel() for p in model.parameters()),
+          "batch": [BATCH, SAMPLES, 1], "launches": launches,
+          "indices": list(idx.shape), "max_abs_err_vs_plain": plain_err,
+          "indices_vs_plain": fused_idx, "max_abs_err_vs_cpu": cpu_err,
+          "indices_vs_cpu": cpu_idx, "batch_ms": batch_ms,
+          "batch_ms_all": times, "rtf": batch_ms / 1e3 / audio_s,
+          "peak_mem_mb": peak_mb, "profile": prof})
+
+    # the index stream of request 0, then serialize and reload
+    sr = StreamingRAVE(cfg, model.state_dict(), chunk_size=CHUNK,
+                       device=device)
+    signal = audio[0].astype(np.float32)
+    for i in range(0, 4 * CHUNK, CHUNK):    # warm-up
+        sr.decode_indices(sr.encode_indices(
+            signal[i:i + CHUNK].reshape(1, -1, 1)))
+    sr.reset()
+    reset()
+    chunk_ms, outs = [], []
+    for i in range(0, SAMPLES, CHUNK):
+        t0 = time.perf_counter()
+        code = sr.encode_indices(signal[i:i + CHUNK].reshape(1, -1, 1))
+        out = sr.decode_indices(code)
+        torch.cuda.synchronize()
+        chunk_ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out[0, :, 0])
+    check(tuple(code.shape) == (1, cfg.num_quantizers,
+                                CHUNK // cfg.total_ratio())
+          and code.dtype == torch.int64, f"index chunk {tuple(code.shape)}")
+    stream_launches = counts()
+    check(not any(stream_launches.values()),
+          f"index stream launches {stream_launches}")
+    y_str = torch.cat(outs).cpu().numpy()
+    d = sr.total_delay_samples()
+    a = y[0, :, 0].cpu().numpy()
+    m = 2 * d + 256
+    a_cmp, b_cmp = a[m - d: SAMPLES - d - 256], y_str[m: SAMPLES - 256]
+    rel = float(np.median(np.abs(a_cmp - b_cmp))
+                / (np.abs(a_cmp).mean() + 1e-9))
+    check(bool(np.isfinite(y_str).all()) and rel < 0.02,
+          f"index stream vs offline median rel err {rel}")
+    out_dir = Path(SMOKE_DIR) / "discrete_export"
+    t0 = time.perf_counter()
+    sr.serialize(out_dir)
+    serialize_s = time.perf_counter() - t0
+    sr.reset()
+    caches = [c.clone() for c in sr.init_caches]
+    export_err = 0.0
+    prog = torch.export.load(out_dir / "forward.pt2").module()
+    with torch.no_grad():
+        for i in range(0, 4 * CHUNK, CHUNK):
+            c = torch.tensor(signal[i:i + CHUNK].reshape(1, -1, 1),
+                             device=device)
+            got, caches = prog(caches, c)
+            export_err = max(export_err, (got - sr.forward(c)).abs().max()
+                             .item())
+    check(export_err <= EXPORT_TOL, f"discrete forward.pt2 {export_err}")
+    shutil.rmtree(out_dir)
+    med = statistics.median(chunk_ms)
+    emit({"phase": "discrete_v3", "step": "discrete_index_stream",
+          "card": card, "chunk": CHUNK, "chunks": len(chunk_ms),
+          "delay_samples": d, "median_rel_err": rel,
+          "launches": stream_launches, "chunk_ms_median": med,
+          "chunk_ms_p80": float(np.percentile(chunk_ms, 80)),
+          "chunk_ms_max": max(chunk_ms),
+          "rtf": med / 1e3 / (CHUNK / cfg.sampling_rate),
+          "serialize_s": serialize_s,
+          "forward_pt2_max_abs_err_4_chunks": export_err})
+    del sr, prog, plain, cpu
+
+    # D, G, G, G at 8 x 131072 from phase_1_duration, B1 in every step
+    batch = {"x": torch.tensor(voices(np, TRAIN_BATCH, cfg.n_signal,
+                                      SEED + 3)[:, :, None],
+                               dtype=torch.float32, device=device)}
+    expect = {"residual_unit": 6, "ci1_conv_forward": 0, "ci1_conv_dx": 0}
+    train = train_cycles(torch, np, state, loop.make_train_step(cfg), batch,
+                         expect, counts, reset, "discrete")
+    books = codebooks(state.model)
+    check(all(float(b["inited"]) == 1.0 and all(
+        bool(torch.isfinite(v).all()) for v in b.values()) for b in books),
+        "discrete codebooks after training")
+    pair = card_vs_cpu_pair(torch, np, ["discrete"], ["fused_kernels=true"],
+                            counts, reset, device)
+    check(all(v == expect for v in pair["launches"].values()),
+          f"discrete pair launches {pair['launches']}")
+    emit({"phase": "discrete_v3", "step": "discrete_train", "card": card,
+          "batch": [TRAIN_BATCH, cfg.n_signal, 1],
+          "start_step": cfg.phase_1_duration, **train,
+          "codebook_cluster_size_sum": [float(b["cluster_size"].sum())
+                                        for b in books],
+          "card_vs_cpu": pair,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return launches, {c["kind"]: expect for c in train["warmup_cycle"]}
+
+
+def adain_workflow(np, sr, voice, loud, n):
+    """The AdaIN controls workflow over ``n`` chunks per stage, each
+    stage from fresh conv caches (as ``process_file_scan`` runs it):
+    plain, target statistics from ``loud``, source statistics from
+    ``voice``, then the transfer.  Returns each stage's output
+    ``(n * chunk,)`` and the AdaIN states after."""
+    c = sr.chunk
+
+    def run(sig):
+        return np.concatenate([sr.forward(sig[i * c:(i + 1) * c].reshape(
+            1, -1, 1))[0, :, 0].cpu().numpy() for i in range(n)])
+
+    def fresh_conv_caches():
+        # the conv caches back to zeros, the AdaIN states (the carry's
+        # tail) kept, as the JAX package's workflow test resets ``cache``
+        k = len(sr.caches) - sr.n_adain
+        sr.caches[:k] = [t.clone() for t in sr.init_caches[:k]]
+
+    sr.reset()
+    out = {"plain": run(voice)}
+    sr.reset()
+    sr.set_learn_target(True)
+    out["learn_target"] = run(loud)
+    sr.set_learn_target(False)
+    sr.set_learn_source(True)
+    fresh_conv_caches()
+    out["learn_source"] = run(voice)
+    sr.set_learn_source(False)
+    fresh_conv_caches()
+    out["transfer"] = run(voice)
+    return out, [a.cpu() for a in sr.adain]
+
+
+def phase_v3(torch, np, KERNELS, card, device="cuda"):
+    """(b) of phase discrete_v3 (see the module docstring).  Returns the
+    launches of each kernel per offline forward and per D and G step."""
+    from rave_tpu_torch.config import build_config
+    from rave_tpu_torch.export.streaming import StreamingRAVE
+    from rave_tpu_torch.models.rave import RAVE, serving_mode
+    from rave_tpu_torch.train import loop
+
+    counts = lambda: {k.name: k.launches for k in KERNELS}  # noqa: E731
+
+    def reset():
+        for k in KERNELS:
+            k.launches = 0
+
+    t_phase = time.perf_counter()
+    cfg = build_config(["v3"])
+    torch.manual_seed(SEED)
+    state = loop.TrainState(cfg, device=device, step=cfg.phase_1_duration,
+                            seed=SEED)
+    model = state.model
+    audio = voices(np, BATCH, SAMPLES, SEED + 4)
+    x = torch.tensor(audio[:, :, None], dtype=torch.float32, device=device)
+    cpu = RAVE(cfg, device="cpu", train_mode=False)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with torch.inference_mode(), serving_mode(model):
+        reset()
+        y = model(x)
+        torch.cuda.synchronize()
+        launches = counts()
+        check(not any(launches.values()), f"v3 forward launches {launches}")
+        check(tuple(y.shape) == tuple(x.shape) and bool(
+            torch.isfinite(y).all()), "v3 forward shape or values")
+        xs = x[:1, :8192]
+        cpu_err = (model(xs).cpu() - cpu(xs.cpu())).abs().max().item()
+        check(cpu_err <= CPU_TOL, f"v3 card vs cpu {cpu_err}")
+        times = [cuda_ms(torch, lambda: model(x), iters=1, warmup=0)
+                 for _ in range(5)]
+    batch_ms = statistics.median(times)
+
+    # the AdaIN controls, card against CPU chunk by chunk, then the same
+    # workflow through process_file_scan's CUDA graph
+    sd = model.state_dict()
+    n = STREAM_CHUNKS
+    voice = audio[0, :n * CHUNK].astype(np.float32)
+    loud = 3.0 * audio[-1, :n * CHUNK].astype(np.float32)
+    sr = StreamingRAVE(cfg, sd, chunk_size=CHUNK, device=device)
+    sr_cpu = StreamingRAVE(cfg, {k: v.cpu() for k, v in sd.items()},
+                           chunk_size=CHUNK, device="cpu")
+    reset()
+    got, got_adain = adain_workflow(np, sr, voice, loud, n)
+    stream_launches = counts()
+    want, want_adain = adain_workflow(np, sr_cpu, voice, loud, n)
+    errs = {k: float(np.abs(got[k] - want[k]).max()) for k in got}
+    errs["adain_state"] = max(float((a - b).abs().max())
+                              for a, b in zip(got_adain, want_adain))
+    check(max(errs.values()) <= CPU_TOL, f"v3 AdaIN workflow card vs cpu "
+          f"{errs}")
+    transfer_diff = float(np.abs(got["transfer"] - got["plain"]).max())
+    check(transfer_diff > 1e-3, f"v3 transfer equals the plain stream "
+          f"({transfer_diff})")
+    check(not any(stream_launches.values()),
+          f"v3 stream launches {stream_launches}")
+    del sr_cpu
+    sr.reset()
+    sr.set_learn_target(True)
+    sr.process_file_scan(loud)
+    sr.set_learn_target(False)
+    sr.set_learn_source(True)
+    sr.process_file_scan(voice)
+    sr.set_learn_source(False)
+    scan = sr.process_file_scan(voice)
+    scan_err = float(np.abs(scan - got["transfer"]).max())
+    scan_state_err = max(float((a.cpu() - b).abs().max())
+                         for a, b in zip(sr.adain, got_adain))
+    check(max(scan_err, scan_state_err) <= EXPORT_TOL,
+          f"v3 CUDA-graph workflow vs eager {scan_err} {scan_state_err}")
+    emit({"phase": "discrete_v3", "step": "v3_serve", "card": card,
+          "config": "v3", "params": sum(p.numel() for p in model.parameters()),
+          "batch": [BATCH, SAMPLES, 1], "launches": launches,
+          "max_abs_err_vs_cpu": cpu_err, "batch_ms": batch_ms,
+          "rtf": batch_ms / 1e3 / (BATCH * SAMPLES / cfg.sampling_rate),
+          "adain_modules": sr.n_adain, "workflow_chunks_per_stage": n,
+          "workflow_max_abs_err_vs_cpu": errs,
+          "transfer_vs_plain_max_abs_diff": transfer_diff,
+          "cuda_graph_vs_eager": {"audio": scan_err,
+                                  "adain_state": scan_state_err},
+          "stream_launches": stream_launches})
+    del sr
+
+    # D, G, G, G at 8 x 131072; the Descript discriminator's share of a G
+    # step; one G step at 1 x 65536 card vs CPU
+    batch = {"x": torch.tensor(voices(np, TRAIN_BATCH, cfg.n_signal,
+                                      SEED + 5)[:, :, None],
+                               dtype=torch.float32, device=device)}
+    expect = {"residual_unit": 0, "ci1_conv_forward": 0, "ci1_conv_dx": 0}
+    step_fn = loop.make_train_step(cfg)
+    train = train_cycles(torch, np, state, step_fn, batch, expect, counts,
+                         reset, "v3")
+
+    def one_g_step():
+        state.step = cfg.phase_1_duration + 4 * 10 + 1
+        step_fn(state, batch)
+
+    prof = device_profile(torch, one_g_step)
+    # the discriminator as a G step runs it: frozen, on real and fake
+    # after the valid-signal crop, with the data gradient only
+    lc, rc = loop.receptive_field_frames(cfg)
+    T = cfg.n_signal - (lc + rc) * cfg.n_band
+    both = torch.cat([batch["x"], batch["x"]])[:, :T].transpose(1, 2) \
+        .contiguous().requires_grad_(True)
+
+    def disc_fwd_bwd():
+        feats = state.disc(both)
+        torch.autograd.grad(sum(f.square().mean() for chain in feats
+                                for f in chain), both)
+
+    state.disc.requires_grad_(False)
+    try:
+        disc_ms = device_ms(torch, disc_fwd_bwd, iters=3)
+    finally:
+        state.disc.requires_grad_(True)
+    prof["descript_ms"] = disc_ms
+    prof["descript_share"] = disc_ms / prof["device_ms"]
+
+    short = build_config(["v3"], ["n_signal=65536", "batch_size=1",
+                                  "log_epsilon=1e-3"])
+    g_step = short.phase_1_duration + 1
+    torch.manual_seed(SEED + 1)
+    card_st = loop.TrainState(short, device=device, step=g_step)
+    cpu_st = loop.TrainState(short, device="cpu", step=g_step)
+    cpu_st.model.load_state_dict({k: v.cpu() for k, v in
+                                  card_st.model.state_dict().items()})
+    cpu_st.disc.load_state_dict({k: v.cpu() for k, v in
+                                 card_st.disc.state_dict().items()})
+    eps = torch.tensor(np.random.default_rng(SEED).standard_normal(
+        (1, short.latent_size, short.n_signal // short.total_ratio())),
+        dtype=torch.float32)
+    sb = {"x": batch["x"][:1, :short.n_signal]}
+    short_fn = loop.make_train_step(short)
+    m_card = {k: float(v) for k, v in short_fn(card_st, sb,
+                                               eps.to(device)).items()}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        m_cpu = {k: float(v) for k, v in short_fn(
+            cpu_st, {"x": sb["x"].cpu()}, eps).items()}
+    finally:
+        torch.set_num_threads(threads)
+    n_card, n_cpu = grad_norms(torch, card_st), grad_norms(torch, cpu_st)
+    rel = {k: abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12)
+           for k in m_cpu}
+    rel.update({f"grad_norm_{g}": abs(n_card[g] - n_cpu[g]) / n_cpu[g]
+                for g in n_cpu})
+    check(max(rel.values()) <= TRAIN_RTOL, f"v3 card vs cpu G step {rel}")
+    emit({"phase": "discrete_v3", "step": "v3_train", "card": card,
+          "batch": [TRAIN_BATCH, cfg.n_signal, 1],
+          "start_step": cfg.phase_1_duration, **train,
+          "g_step_profile": prof,
+          "card_vs_cpu": {"overrides": ["n_signal=65536", "batch_size=1",
+                                        "log_epsilon=1e-3"],
+                          "rel_err": rel, "grad_norms_card": n_card,
+                          "grad_norms_cpu": n_cpu},
+          "phase_seconds": time.perf_counter() - t_phase})
+    return launches, {c["kind"]: expect for c in train["warmup_cycle"]}
+
+
+def phase_discrete_v3(torch, np, KERNELS, card, device="cuda"):
+    """Phase discrete_v3 (see the module docstring): (a) ``discrete``,
+    (b) ``v3``, (c) a ``discrete_v3`` D, G pair card vs CPU.  Returns
+    the launch counts for the summary."""
+    t_phase = time.perf_counter()
+    counts = lambda: {k.name: k.launches for k in KERNELS}  # noqa: E731
+
+    def reset():
+        for k in KERNELS:
+            k.launches = 0
+
+    d_fwd, d_train = phase_discrete(torch, np, KERNELS, card, device)
+    v3_fwd, v3_train = phase_v3(torch, np, KERNELS, card, device)
+    pair = card_vs_cpu_pair(torch, np, ["discrete_v3"], [], counts, reset,
+                            device)
+    check(not any(v for c in pair["launches"].values() for v in c.values()),
+          f"discrete_v3 pair launches {pair['launches']}")
+    emit({"phase": "discrete_v3", "step": "discrete_v3_pair", "card": card,
+          "config": "discrete_v3", "card_vs_cpu": pair,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return {"discrete_forward": d_fwd, "discrete_train_step": d_train,
+            "v3_forward": v3_fwd, "v3_train_step": v3_train}
+
+
 # native: the exported steps served by the C++ host, with no Python
 NATIVE_BLOCKS = 64       # 2048-sample blocks of full-width v2 (131072)
 NATIVE_VC_BLOCKS = 32    # 4096-sample blocks of the fork's converters
@@ -2460,6 +3101,13 @@ def main() -> int:
                            (256, T0 // 16, (1, 3, 9)), (512, T0 // 32, (1, 3))):
             for d in dils:
                 per_shape[(path, B, T, C, d)] = 2
+    # discrete (capacity 96): only its 384-channel units pass B1's gate,
+    # at T0 / 16 with dilations 1, 3, 9, once in the encoder and once in
+    # the generator
+    for path, B in (("offline_discrete", BATCH),
+                    ("train_discrete", TRAIN_BATCH)):
+        for d in (1, 3, 9):
+            per_shape[(path, B, T0 // 16, 384, d)] = 2
 
     # 2. kernels vs plain versions on the card
     max_err, shapes = phase_kernels(torch, ru, per_shape)
@@ -2591,19 +3239,22 @@ def main() -> int:
     phase_export_stream(torch, np, KERNELS, model.state_dict(), audio,
                         model, x, smi)
     phase_export_run(torch, np, run, db, wavs, smi)
-    # 12(b). the trained run's convert.pt2 served by the C++ host
+    # 13(b). the trained run's convert.pt2 served by the C++ host
     native_convert = phase_native_convert(torch, np, run, wavs, smi)
     shutil.rmtree(SMOKE_DIR)
 
     # 11. the f0-conditioned fork: convert, FCPE, train, stream, probe
     pitch_convert, pitch_train, pitch_dir = phase_pitch(torch, np, KERNELS)
 
-    # 12. native: forward, convert_pg and the refusals of the C++ host
+    # 12. the discrete and v3 presets, kernel B1 at C = 384
+    dv3 = phase_discrete_v3(torch, np, KERNELS, smi)
+
+    # 13. native: forward, convert_pg and the refusals of the C++ host
     phase_native(torch, np, KERNELS, model.state_dict(), audio, pitch_dir,
                  native_convert, smi)
     shutil.rmtree(SMOKE_DIR)
 
-    # 13. summary
+    # 14. summary
     def total(key, path="offline_v2"):
         return sum(s[key] * s["launches_per_call"] for s in shapes
                    if s["path"] == path)
@@ -2627,9 +3278,18 @@ def main() -> int:
         "launches_pitch_convert": pitch_convert,
         "launches_pitch_train_step": {k: v["residual_unit"]
                                       for k, v in pitch_train.items()},
-        "train_v2": {k: total(k, "train_v2") for k in (
+        "launches_discrete_forward": dv3["discrete_forward"][
+            "residual_unit"],
+        "launches_discrete_train_step": {
+            k: v["residual_unit"]
+            for k, v in dv3["discrete_train_step"].items()},
+        "launches_v3_forward": dv3["v3_forward"]["residual_unit"],
+        "launches_v3_train_step": {k: v["residual_unit"] for k, v in
+                                   dv3["v3_train_step"].items()},
+        **{path: {k: total(k, path) for k in (
             "ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms",
-            "bound_ms_f32")}}]
+            "bound_ms_f32")}
+           for path in ("train_v2", "offline_discrete", "train_discrete")}}]
     # B2/B3: one launch per head and G step; the plain twin is one
     # PyTorch call (F.conv1d, conv1d_input), so it is the library time
     for name, key, line, launches in (
@@ -2652,6 +3312,12 @@ def main() -> int:
             "launches_pitch_convert": 0,
             "launches_pitch_train_step": {k: v[name] for k, v in
                                           pitch_train.items()},
+            "launches_discrete_forward": dv3["discrete_forward"][name],
+            "launches_discrete_train_step": {
+                k: v[name] for k, v in dv3["discrete_train_step"].items()},
+            "launches_v3_forward": dv3["v3_forward"][name],
+            "launches_v3_train_step": {k: v[name] for k, v in
+                                       dv3["v3_train_step"].items()},
             "library_ms": per("plain_ms")})
     print(smi, flush=True)
     emit({"kernels": kernels})

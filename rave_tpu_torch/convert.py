@@ -1,10 +1,13 @@
 """Load the JAX package's parameters into the port's modules.
 
-``load_flax_params(model, params, batch_stats)`` takes the ``params``
-tree of a ``rave_tpu`` RAVE (and, for a speaker encoder with BatchNorms,
-the ``batch_stats`` collection beside it) as nested dicts of numpy arrays
-(convert with ``jax.tree.map(np.asarray, tree)`` on the JAX side) and
-fills a :class:`~rave_tpu_torch.models.rave.RAVE`.
+``load_flax_params(model, params, batch_stats, model_state)`` takes the
+``params`` tree of a ``rave_tpu`` RAVE (and, for a speaker encoder with
+BatchNorms, the ``batch_stats`` collection beside it; for the discrete
+head and AdaIN, the ``quantizer`` and ``adain`` collections in
+``model_state``, the dict ``StreamingRAVE(model_state=...)`` takes in the
+JAX package) as nested dicts of numpy arrays (convert with
+``jax.tree.map(np.asarray, tree)`` on the JAX side) and fills a
+:class:`~rave_tpu_torch.models.rave.RAVE`.
 ``load_discriminator_params(disc, params)`` fills a discriminator of
 :mod:`~rave_tpu_torch.models.discriminators`.  Both raise on a flax leaf
 left unused or a torch parameter left unfilled.  Nothing here imports
@@ -14,10 +17,17 @@ Flax names modules by type in construction order, and binds a
 ``Residual``'s inner ``DilatedUnit`` to the parent's scope: under
 ``encoder`` sit ``Conv1d_0..`` and ``DilatedUnit_0..`` directly, each
 ``DilatedUnit_i`` holding ``Conv1d_0`` (dilated) and ``Conv1d_1`` (1x1).
+``Activation_i`` (a Snake ``alpha``; a leaky ReLU owns nothing) and
+``AdaIN_i`` (state in the ``adain`` collection) are counted the same way.
 The port registers its modules in the same order, so counting them by
-type walks the same names.  Layouts: a ``Conv1d`` kernel ``(k, in, out)``
-becomes ``(out, in, k)``; a ``ConvTranspose1d`` kernel ``(k, in, out)``
-becomes ``(in, out, k)`` (no flip); weight-norm gains ``(1, 1, out)``
+type walks the same names.  A codebook's ``embed`` ``(K, D)`` keeps its
+layout; an AdaIN's statistics ``(B, 1, C)`` and scalars become the packed
+state ``(B, C, 8)`` of :class:`~rave_tpu_torch.models.blocks.AdaIN`, set
+as the module's cache (the state an offline pass reads;
+:func:`adain_states` lists them for ``StreamingRAVE(adain_state=...)``).
+Layouts: a ``Conv1d`` kernel ``(k, in, out)`` becomes ``(out, in, k)``;
+a ``ConvTranspose1d`` kernel ``(k, in, out)`` becomes ``(in, out, k)``
+(no flip); weight-norm gains ``(1, 1, out)``
 take the shape of the port's per-output-channel gain.  The speaker
 encoder's named modules keep their flax names (``layer2`` .. ``fc6``,
 ``in_layer`` being flax's ``Conv1d_0``); a flax ``Dense`` kernel
@@ -25,7 +35,8 @@ encoder's named modules keep their flax names (``layer2`` .. ``fc6``,
 adversary's ``layers_i`` is entry ``i`` of its ``Sequential``; the AAM
 head's ``weight`` keeps its layout.  A
 discriminator ``WNConv_i`` is the ``i``-th entry of its module's
-``convs``, its ``v`` ``(*k, in, out)`` becoming ``(out, in, *k)``.
+``convs`` (the Descript MRD's ``band{b}_conv{l}`` and ``post`` keep their
+names), its ``v`` ``(*k, in, out)`` becoming ``(out, in, *k)``.
 ``load_fcpe_params(fcpe, params)`` fills the FCPE pitch estimator
 (:class:`~rave_tpu_torch.models.pitch_fcpe.FCPE`) from the JAX package's
 FCPE tree, whose names it keeps (``layers`` a list there).
@@ -39,11 +50,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from .models.blocks import DilatedUnit
+from .models.blocks import Activation, AdaIN, DilatedUnit
+from .models.discriminators import WNConv
+from .models.latent import DiscreteHead
 from .models.speaker import CohortNorm
 from .ops.conv import Conv1d, ConvTranspose1d
 
-_NAMED = (Conv1d, ConvTranspose1d, DilatedUnit)
+_NAMED = (Conv1d, ConvTranspose1d, DilatedUnit, Activation, AdaIN)
 
 
 def _flax_children(module: nn.Module, counts=None) -> Iterator:
@@ -126,12 +139,18 @@ class _Loader:
         self.filled.update(id(p) for p in params)
 
     def named(self, module: nn.Module, tree: Mapping, path: str) -> None:
-        """The convs and dilated units of ``module``, by flax name."""
+        """The convs, dilated units and Snake activations of ``module``,
+        by flax name."""
         for name, child in _flax_children(module):
+            if isinstance(child, AdaIN) or (
+                    isinstance(child, Activation) and child.kind != "snake"):
+                continue
             if name not in tree:
                 raise KeyError(f"{path}{name} missing from the flax params")
             if isinstance(child, DilatedUnit):
                 self.named(child, tree[name], f"{path}{name}/")
+            elif isinstance(child, Activation):
+                self.leaf(child.alpha, tree[name], f"{path}{name}/", "alpha")
             else:
                 self.conv(child, tree[name], f"{path}{name}/")
 
@@ -166,19 +185,72 @@ def _load_speaker(ld: _Loader, spk: nn.Module, tree: Mapping,
     ld.leaf(spk.fc6.bias, tree["fc6"], f"{path}fc6/", "bias")
 
 
-def load_flax_params(model: nn.Module, params: Mapping,
-                     batch_stats: Optional[Mapping] = None) -> None:
-    """Copy a ``rave_tpu`` RAVE ``params`` tree (and its ``batch_stats``
-    collection, needed by a speaker encoder with BatchNorms) into
-    ``model`` in place.
+def adain_states(model: nn.Module) -> list:
+    """The state of each AdaIN of ``model`` in module order (None where a
+    module has none)."""
+    return [m.cache for m in model.modules() if isinstance(m, AdaIN)]
 
-    Raises if a flax leaf is left unused or a torch tensor unfilled.
+
+def _load_adain(model: nn.Module, tree: Mapping) -> set:
+    """Each ``AdaIN_i`` of the encoder's and decoder's ``adain`` trees as
+    its module's packed state; returns the leaves used."""
+    used, dev = set(), next(model.parameters()).device
+    for part in ("encoder", "decoder"):
+        for name, child in _flax_children(getattr(model, part)):
+            if not isinstance(child, AdaIN):
+                continue
+            if name not in tree.get(part, {}):
+                raise KeyError(f"adain/{part}/{name} missing from the flax "
+                               "model state")
+            leaves = tree[part][name]
+            mean_x = np.asarray(leaves["mean_x"])
+            B, _, C = mean_x.shape
+            if C != child.dim:
+                raise ValueError(f"adain/{part}/{name}: {C} channels for "
+                                 f"{child.dim}")
+            cols = [np.broadcast_to(np.asarray(leaves[k]).reshape(
+                (B, C) if np.ndim(leaves[k]) else ()), (B, C))
+                for k in AdaIN.SLOTS]
+            child.cache = torch.from_numpy(np.stack(cols, -1).astype(
+                np.float32)).to(dev)
+            used.update(f"adain/{part}/{name}/{k}" for k in leaves)
+    return used
+
+
+def load_flax_params(model: nn.Module, params: Mapping,
+                     batch_stats: Optional[Mapping] = None,
+                     model_state: Optional[Mapping] = None) -> None:
+    """Copy a ``rave_tpu`` RAVE ``params`` tree (its ``batch_stats``
+    collection, needed by a speaker encoder with BatchNorms, and its
+    other collections in ``model_state``: ``quantizer`` into the codebook
+    buffers, ``adain`` into the AdaIN states) into ``model`` in place.
+
+    Raises if a flax leaf is left unused or a torch tensor unfilled (a
+    discrete model's codebooks count only with a ``quantizer`` tree).
     """
     ld = _Loader()
     for part in ("encoder", "decoder"):
         ld.named(getattr(model, part), params[part], f"params/{part}/")
     trees = {"params": params}
     tensors = [("params/" + n, p) for n, p in model.named_parameters()]
+    model_state = dict(model_state or {})
+    if "quantizer" in model_state and isinstance(model.latent, DiscreteHead):
+        tree = model_state.pop("quantizer")
+        trees["quantizer"] = tree
+        for i, layer in enumerate(model.latent.rvq.layers):
+            book = layer.codebook
+            path = f"quantizer/latent/rvq/vq{i}/codebook/"
+            sub = tree["latent"]["rvq"][f"vq{i}"]["codebook"]
+            for name in ("embed", "embed_avg", "cluster_size", "inited"):
+                ld.leaf(getattr(book, name), sub, path, name)
+                tensors.append((path + name, getattr(book, name)))
+            book._inited_host = None
+    if "adain" in model_state:
+        trees["adain"] = model_state.pop("adain")
+        ld.used |= _load_adain(model, trees["adain"])
+    if model_state:
+        raise ValueError(f"model state collections left unused: "
+                         f"{sorted(model_state)}")
     if batch_stats is not None:
         trees["batch_stats"] = batch_stats
     spk = model.speaker_encoder
@@ -218,25 +290,29 @@ def load_flax_params(model: nn.Module, params: Mapping,
     ld.check(trees, tensors)
 
 
+def _load_wnconv(ld: _Loader, conv: nn.Module, tree: Mapping, key: str,
+                 path: str) -> None:
+    sub, sub_path, nd = tree.get(key), f"{path}{key}/", conv.v.dim() - 2
+    if sub is None:
+        raise KeyError(f"{sub_path} missing from the flax params")
+    to_out_in_k = (nd + 1, nd) + tuple(range(nd))
+    ld.leaf(conv.v, sub, sub_path, "v", lambda a: a.transpose(to_out_in_k))
+    ld.leaf(conv.g, sub, sub_path, "g", lambda a: a.reshape(conv.g.shape))
+    ld.leaf(conv.bias, sub, sub_path, "bias")
+
+
 def _load_wnconvs(ld: _Loader, module: nn.Module, tree: Mapping,
                   path: str) -> None:
     for name, child in module.named_children():
-        if name != "convs":
+        if name == "convs":
+            for i, conv in enumerate(child):
+                _load_wnconv(ld, conv, tree, f"WNConv_{i}", path)
+        elif isinstance(child, WNConv):
+            _load_wnconv(ld, child, tree, name, path)
+        else:
             if name not in tree:
                 raise KeyError(f"{path}{name} missing from the flax params")
             _load_wnconvs(ld, child, tree[name], f"{path}{name}/")
-            continue
-        for i, conv in enumerate(child):
-            key, nd = f"WNConv_{i}", conv.v.dim() - 2
-            sub, sub_path = tree.get(key), f"{path}WNConv_{i}/"
-            if sub is None:
-                raise KeyError(f"{sub_path} missing from the flax params")
-            to_out_in_k = (nd + 1, nd) + tuple(range(nd))
-            ld.leaf(conv.v, sub, sub_path, "v",
-                    lambda a: a.transpose(to_out_in_k))
-            ld.leaf(conv.g, sub, sub_path, "g",
-                    lambda a: a.reshape(conv.g.shape))
-            ld.leaf(conv.bias, sub, sub_path, "bias")
 
 
 def load_discriminator_params(disc: nn.Module, params: Mapping) -> None:

@@ -1,4 +1,5 @@
-"""Chunked streaming inference and export for the v2 codec and ``v2_fork``.
+"""Chunked streaming inference and export for the v2 codec, ``v2_fork``,
+``discrete`` and ``v3``.
 
 Port of ``rave_tpu/export/streaming.py``.  The model is rebuilt in
 streaming mode and the offline parameters are loaded unchanged; each conv
@@ -13,7 +14,13 @@ with ``torch.export``.  The end-to-end latency is the static
 ``total_delay_samples``.  For the fork, ``encode`` appends to each frame
 the speaker embedding of the chunk's streamed bands (the speaker encoder
 runs offline on the chunk alone, without caches), and ``decode`` takes
-that latent.
+that latent.  The discrete head adds the integer-code surface
+``encode_indices`` / ``decode_indices`` over the same caches.  AdaIN's
+statistics and its ``learn_x``/``learn_y`` flags are carried after the
+caches (:class:`~rave_tpu_torch.models.blocks.AdaIN`), so the exported
+steps and the CUDA-graph replay read the flags the host sets between
+chunks (``set_learn_source`` / ``set_learn_target`` / ``reset_source`` /
+``reset_target``).
 
 Options: fake stereo (one encode, the decoder run on the batch-duplicated
 latent with its own caches, the two decodes as the two channels) and a
@@ -34,6 +41,7 @@ from ..config import DiscriminatorConfig, RAVEConfig
 from ..ops.conv import StreamStep, stream_caches
 from ..ops.pqmf import _pqmf_kernels
 from ..ops.resampler import Resampler
+from ..models.blocks import AdaIN
 from ..models.rave import RAVE, band_frame_delay, stream_setup
 
 
@@ -41,19 +49,26 @@ class StreamingRAVE:
     """Stateful chunked encode / decode driver around the streaming model.
 
     ``params`` is the state dict of an offline :class:`RAVE` of the same
-    config.  Chunks are audio ``(batch_size, host_chunk, 1)`` at the host
-    rate (numpy or tensor); results are tensors on ``device``, stereo
-    audio ``(B, T, 2)``.
+    config (a discrete model's trained codebooks are buffers in it).
+    Chunks are audio ``(batch_size, host_chunk, 1)`` at the host rate
+    (numpy or tensor); results are tensors on ``device``, stereo audio
+    ``(B, T, 2)``.  ``adain_state`` gives the AdaIN modules' initial
+    states (module order, each ``(batch_size, C, 8)``; default: no
+    statistics, learning off), which :meth:`reset` restores.
     """
 
     def __init__(self, cfg: RAVEConfig, params: Mapping[str, torch.Tensor],
                  chunk_size: int = 2048, batch_size: int = 1,
                  stereo: bool = False, target_sr: Optional[int] = None,
-                 device="cuda"):
+                 device="cuda", adain_state: Optional[list] = None):
         if chunk_size % cfg.total_ratio():
             raise ValueError(
                 f"chunk_size must be a multiple of the total stride "
                 f"{cfg.total_ratio()}, got {chunk_size}")
+        if stereo and cfg.adain:
+            # AdaIN keeps per-batch-slot statistics, which the stereo
+            # batch duplication would mix (as in the JAX package)
+            raise ValueError("stereo mode not supported with AdaIN")
         self.cfg = cfg
         self.chunk = chunk_size
         self.batch = batch_size
@@ -68,9 +83,26 @@ class StreamingRAVE:
         z0 = torch.zeros(batch_size, chunk_size // cfg.total_ratio(),
                          cfg.decoder_latent_size(), device=dev)
         self.cache_modules, self.init_caches = stream_caches(m, m.forward, x0)
+        self.n_adain = sum(isinstance(c, AdaIN) for c in self.cache_modules)
+        if adain_state is not None:
+            if len(adain_state) != self.n_adain:
+                raise ValueError(f"{len(adain_state)} AdaIN states for "
+                                 f"{self.n_adain} AdaIN modules")
+            n = len(self.init_caches) - self.n_adain
+            for i, a in enumerate(adain_state):
+                if a.shape != self.init_caches[n + i].shape:
+                    raise ValueError(
+                        f"AdaIN state {i}: {tuple(a.shape)} for "
+                        f"{tuple(self.init_caches[n + i].shape)}")
+                self.init_caches[n + i] = a.to(dev, torch.float32).clone()
         self._forward = StreamStep(m, m.forward, self.cache_modules)
         self._encode = StreamStep(m, m.encode, self.cache_modules)
         self._decode = StreamStep(m, m.decode, self.cache_modules)
+        if cfg.latent_head == "discrete":
+            self._encode_idx = StreamStep(m, m.encode_indices,
+                                          self.cache_modules)
+            self._decode_idx = StreamStep(m, m.decode_indices,
+                                          self.cache_modules)
         if stereo:
             # the stereo decoder keeps its own caches, at batch 2B
             mods, self.init_dec_caches = stream_caches(
@@ -116,7 +148,8 @@ class StreamingRAVE:
     # -- stateful API -----------------------------------------------------
 
     def reset(self) -> None:
-        """Every carried cache back to zeros (the next chunk starts anew)."""
+        """Every carried cache back to zeros (the next chunk starts anew),
+        and the AdaIN state to its initial one."""
         fresh = lambda cs: [c.clone() for c in cs]  # noqa: E731
         self.caches = fresh(self.init_caches)
         if self.stereo:
@@ -124,6 +157,40 @@ class StreamingRAVE:
         if self.rs_ratio > 1:
             self.down_caches = fresh(self.init_down_caches)
             self.up_caches = fresh(self.init_up_caches)
+
+    # -- AdaIN timbre-transfer controls ------------------------------------
+
+    @property
+    def adain(self) -> list:
+        """The live AdaIN states ``(B, C, 8)``, module order (slots
+        :attr:`AdaIN.SLOTS`)."""
+        return self.caches[len(self.caches) - self.n_adain:]
+
+    def _set_adain(self, values: Mapping[int, float]) -> None:
+        if not self.n_adain:
+            raise ValueError("model has no AdaIN layers (adain config)")
+        n = len(self.caches) - self.n_adain
+        for i in range(n, len(self.caches)):
+            s = self.caches[i].clone()
+            for slot, v in values.items():
+                s[..., slot] = v
+            self.caches[i] = s
+
+    def set_learn_source(self, on: bool) -> None:
+        """While on (and target learning off), AdaIN folds each chunk's
+        statistics into the SOURCE's."""
+        self._set_adain({AdaIN.LEARN_X: float(on)})
+
+    def set_learn_target(self, on: bool) -> None:
+        """While on, AdaIN folds each chunk's statistics into the
+        TARGET's (and learns no source statistics)."""
+        self._set_adain({AdaIN.LEARN_Y: float(on)})
+
+    def reset_source(self) -> None:
+        self._set_adain({AdaIN.MEAN_X: 0.0, AdaIN.STD_X: 1.0, AdaIN.N_X: 0.0})
+
+    def reset_target(self) -> None:
+        self._set_adain({AdaIN.MEAN_Y: 0.0, AdaIN.STD_Y: 1.0, AdaIN.N_Y: 0.0})
 
     def _tensor(self, a) -> torch.Tensor:
         if isinstance(a, torch.Tensor):
@@ -173,6 +240,22 @@ class StreamingRAVE:
         y, self.caches = self._decode(self.caches, z)
         return self._from_model_rate(y)
 
+    @torch.inference_mode()
+    def encode_indices(self, x_chunk) -> torch.Tensor:
+        """Audio chunk ``(B, chunk, 1)`` at the model rate -> RVQ indices
+        ``(B, n_quantizers, chunk / total_ratio)`` int64 (discrete head
+        only; mono, as in the JAX package)."""
+        idx, self.caches = self._encode_idx(self.caches, self._tensor(x_chunk))
+        return idx
+
+    @torch.inference_mode()
+    def decode_indices(self, idx) -> torch.Tensor:
+        """RVQ indices -> audio chunk ``(B, chunk, 1)`` at the model rate
+        (discrete head only)."""
+        idx = torch.as_tensor(idx, dtype=torch.int64, device=self.device)
+        y, self.caches = self._decode_idx(self.caches, idx)
+        return y
+
     def process_file(self, x: np.ndarray) -> np.ndarray:
         """Stream a whole mono signal at the host rate chunk by chunk (a
         ragged end is dropped); returns the streamed output (the first
@@ -190,18 +273,24 @@ class StreamingRAVE:
         CUDA device the step (and the copy of the new caches into static
         ones) is captured once in a CUDA graph and replayed per chunk,
         the counterpart of the JAX package's single ``lax.scan``; on the
-        CPU the step runs in a loop.  Stereo and host-rate streams go
-        through :meth:`process_file`, as in the JAX package."""
+        CPU the step runs in a loop.  The AdaIN state starts from the live
+        one (the controls set so far; after :meth:`reset` the initial
+        one, as in the JAX package), which the last chunk's state then
+        replaces.  Stereo and host-rate streams go through
+        :meth:`process_file`, as in the JAX package."""
         if self.stereo or self.rs_ratio > 1:
             return self.process_file(x)
         hc = self.chunk
         T = len(x) - len(x) % hc
         chunks = self._tensor(np.asarray(x[:T], np.float32)).reshape(
             -1, 1, hc, 1)
+        start = list(self.init_caches)
+        if self.n_adain:
+            start[-self.n_adain:] = self.adain
         with torch.no_grad():
             if self.device.type == "cuda":
-                graph, sx, sc, sy = self._chunk_graph()
-                for c, c0 in zip(sc, self.init_caches):
+                graph, sx, caches, sy = self._chunk_graph()
+                for c, c0 in zip(caches, start):
                     c.copy_(c0)
                 ys = torch.empty((len(chunks), *sy.shape), device=self.device)
                 for i in range(len(chunks)):
@@ -209,11 +298,14 @@ class StreamingRAVE:
                     graph.replay()
                     ys[i].copy_(sy)
             else:
-                caches, outs = list(self.init_caches), []
+                caches, outs = start, []
                 for xc in chunks:
                     y, caches = self._forward(caches, xc)
                     outs.append(y)
                 ys = torch.stack(outs)
+        if self.n_adain:
+            self.caches[-self.n_adain:] = [
+                c.clone() for c in caches[-self.n_adain:]]
         return ys.reshape(-1).cpu().numpy()
 
     def _chunk_graph(self):
@@ -286,8 +378,9 @@ class StreamingRAVE:
         * ``forward.pt2``, ``encode.pt2``, ``decode.pt2``:
           ``(caches, x) -> (y, caches)`` (reload with
           ``torch.export.load(path).module()``);
-        * ``cache_init.npz`` (zeros, keys ``c0..cN`` in manifest order)
-          and ``cache_init.bin`` (the same, raw little-endian);
+        * ``cache_init.npz`` (keys ``c0..cN`` in manifest order: zero
+          caches, then the initial AdaIN states) and ``cache_init.bin``
+          (the same, raw little-endian);
         * ``io_manifest.txt``: ``meta <chunk> <sr> <batch>``, then one
           ``in`` line per cache and the chunk, one ``out`` line for ``y``
           and per cache (dtype, bytes, rank, dims);
@@ -296,7 +389,7 @@ class StreamingRAVE:
         out = Path(out_dir)
         out.mkdir(parents=True, exist_ok=True)
         cfg = self.cfg
-        caches = [torch.zeros_like(c) for c in self.init_caches]
+        caches = [c.clone() for c in self.init_caches]
         x = torch.zeros(self.batch, self.chunk, 1, device=self.device)
         z = torch.zeros(self.batch, self.chunk // cfg.total_ratio(),
                         cfg.decoder_latent_size(), device=self.device)
@@ -314,7 +407,7 @@ class StreamingRAVE:
         meta = dict(chunk_size=self.chunk, batch=self.batch,
                     sampling_rate=cfg.sampling_rate,
                     total_delay_samples=int(self.total_delay_samples()),
-                    latent_size=cfg.latent_size, adain=False,
+                    latent_size=cfg.latent_size, adain=self.n_adain > 0,
                     config=cfg.name)
         (out / "meta.json").write_text(json.dumps(meta, indent=2))
         return out

@@ -1,12 +1,12 @@
-"""v2 building blocks: activation, dilated residual units, EncoderV2,
-GeneratorV2.
+"""v2 building blocks: activations (leaky ReLU, Snake), AdaIN, dilated
+residual units, EncoderV2, GeneratorV2.
 
 Port of the v2 part of ``rave_tpu/models/blocks.py``.  Layout is
 channels-first ``(B, C, T)``.  Every block threads the static delay
 algebra of :mod:`rave_tpu_torch.ops.delay`; streaming state lives in the
-:class:`~rave_tpu_torch.ops.conv.Cached` modules.  Modules are registered
-in the order the JAX package creates its parameters, which
-:mod:`rave_tpu_torch.convert` relies on.
+:class:`~rave_tpu_torch.ops.conv.Cached` modules (AdaIN's statistics and
+controls too).  Modules are registered in the order the JAX package
+creates them, which :mod:`rave_tpu_torch.convert` relies on.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.conv import Conv1d, ConvTranspose1d, Delay, StreamSetup
+from ..ops.conv import Cached, Conv1d, ConvTranspose1d, Delay, StreamSetup
 from ..ops.delay import get_padding, plan_conv, plan_conv_transpose
 from ..ops.kernels.residual_unit import residual_unit
 
@@ -34,17 +34,104 @@ def conv_delay(kernel_size: int, stride: int = 1, dilation: int = 1,
 
 
 class Activation(nn.Module):
-    """LeakyReLU with slope 0.2 (the only activation of this slice)."""
+    """LeakyReLU with slope 0.2, or Snake ``x + sin(alpha x)^2 / alpha``
+    with a per-channel ``alpha`` ``(dim,)`` (initialised to ones)."""
 
-    def __init__(self, kind: str = "leaky_relu", negative_slope: float = 0.2):
+    def __init__(self, kind: str = "leaky_relu", dim: int = 0,
+                 negative_slope: float = 0.2):
         super().__init__()
-        if kind != "leaky_relu":
-            raise NotImplementedError(
-                f"activation {kind!r} is not ported yet (ROADMAP A5)")
-        self.negative_slope = negative_slope
+        if kind not in ("leaky_relu", "snake"):
+            raise ValueError(f"unknown activation {kind!r}")
+        self.kind, self.negative_slope = kind, negative_slope
+        if kind == "snake":
+            self.alpha = nn.Parameter(torch.ones(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.leaky_relu(x, self.negative_slope)
+        if self.kind == "leaky_relu":
+            return F.leaky_relu(x, self.negative_slope)
+        alpha = self.alpha.to(x.dtype)[:, None]
+        return x + (1.0 / (alpha + 1e-9)) * torch.sin(alpha * x) ** 2
+
+
+class AdaIN(Cached):
+    """Adaptive instance normalisation for timbre transfer while serving.
+
+    Training runs it as the identity.  Serving (``train_mode`` off) keeps
+    its state ``(B, C, 8)`` as the module's cache, carried with the conv
+    caches: per batch slot and channel the source's and the target's
+    running mean and std (``std`` with ``ddof=1`` over time), and,
+    replicated over both axes, the update counters and the float flags
+    ``learn_x``/``learn_y`` (slots :attr:`SLOTS`).  A streaming pass with
+    ``learn_y`` on folds the chunk's statistics into the target's; with
+    ``learn_x`` on (and ``learn_y`` off) into the source's: target
+    learning wins.  Once both have statistics and ``learn_y`` is off, the
+    output is ``(x - mean_x) / (std_x + 1e-5) * std_y + mean_y``.  An
+    offline pass reads a state it was given and updates nothing; without
+    one it is the identity (no statistics yet).
+    """
+
+    SLOTS = ("mean_x", "std_x", "mean_y", "std_y", "num_update_x",
+             "num_update_y", "learn_x", "learn_y")
+    MEAN_X, STD_X, MEAN_Y, STD_Y, N_X, N_Y, LEARN_X, LEARN_Y = range(8)
+    carry_last = True
+
+    def __init__(self, dim: int, ss: StreamSetup = StreamSetup()):
+        super().__init__()
+        self.dim, self.ss = dim, ss
+        self.train_mode = True
+
+    @classmethod
+    def initial_state(cls, batch: int, dim: int, device=None,
+                      dtype=torch.float32) -> torch.Tensor:
+        """No statistics, learning off: zeros, the stds one."""
+        s = torch.zeros(batch, dim, 8, device=device, dtype=dtype)
+        s[..., cls.STD_X] = 1.0
+        s[..., cls.STD_Y] = 1.0
+        return s
+
+    def initial(self, like: torch.Tensor) -> torch.Tensor:
+        return self.initial_state(like.shape[0], self.dim, like.device,
+                                  like.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.train_mode:
+            return x
+        state = self.cache
+        if state is None:
+            if not self.ss.streaming:
+                return x
+            state = self.initial_state(x.shape[0], self.dim, x.device,
+                                       x.dtype)
+
+        def slot(k):
+            return state[..., k:k + 1]
+
+        if self.ss.streaming:
+            mean = x.mean(2, keepdim=True)
+            std = x.std(2, keepdim=True)
+
+            def upd(k, src, n):
+                return slot(k) + (src - slot(k)) / (slot(n) + 1)
+
+            learn_y = slot(self.LEARN_Y) > 0
+            do_x = ~learn_y & (slot(self.LEARN_X) > 0)
+            mean_y = torch.where(learn_y, upd(self.MEAN_Y, mean, self.N_Y),
+                                 slot(self.MEAN_Y))
+            std_y = torch.where(learn_y, upd(self.STD_Y, std, self.N_Y),
+                                slot(self.STD_Y))
+            mean_x = torch.where(do_x, upd(self.MEAN_X, mean, self.N_X),
+                                 slot(self.MEAN_X))
+            std_x = torch.where(do_x, upd(self.STD_X, std, self.N_X),
+                                slot(self.STD_X))
+            state = torch.cat([mean_x, std_x, mean_y, std_y,
+                               slot(self.N_X) + do_x, slot(self.N_Y) + learn_y,
+                               slot(self.LEARN_X), slot(self.LEARN_Y)], -1)
+            self.cache = state
+        transfer = (x - slot(self.MEAN_X)) / (slot(self.STD_X) + 1e-5) \
+            * slot(self.STD_Y) + slot(self.MEAN_Y)
+        use = ((slot(self.LEARN_Y) <= 0) & (slot(self.N_X) > 0)
+               & (slot(self.N_Y) > 0))
+        return torch.where(use, transfer, x)
 
 
 class DilatedUnit(nn.Module):
@@ -58,9 +145,10 @@ class DilatedUnit(nn.Module):
         self.dim, self.kernel_size, self.dilation = dim, kernel_size, dilation
         self.activation = activation
         self.ss = ss
-        self.act = Activation(activation)
+        self.act1 = Activation(activation, dim)
         self.conv1 = Conv1d(dim, dim, kernel_size, dilation=dilation,
                             weight_norm=weight_norm, ss=ss)
+        self.act2 = Activation(activation, dim)
         self.conv2 = Conv1d(dim, dim, 1, weight_norm=weight_norm, ss=ss)
 
     @property
@@ -77,7 +165,7 @@ class DilatedUnit(nn.Module):
                 and self.dim % 128 == 0 and self.dim <= 512)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv2(self.act(self.conv1(self.act(x))))
+        return self.conv2(self.act2(self.conv1(self.act1(x))))
 
 
 class Residual(nn.Module):
@@ -109,10 +197,11 @@ class EncoderV2(nn.Module):
                  latent_size: int, n_out: int, kernel_size: int,
                  dilations: Sequence, keep_dim: bool = False,
                  activation: str = "leaky_relu", weight_norm: bool = True,
-                 fused: bool = False, in_delay: int = 0,
+                 adain: bool = False, fused: bool = False, in_delay: int = 0,
                  ss: StreamSetup = StreamSetup()):
         super().__init__()
         self.capacity, self.ratios = capacity, list(ratios)
+        self.adain = adain
         self.latent_size, self.n_out = latent_size, n_out
         self.kernel_size, self.dilations = kernel_size, dilations
         self.keep_dim, self.in_delay, self.ss = keep_dim, in_delay, ss
@@ -123,13 +212,15 @@ class EncoderV2(nn.Module):
             if kind == "in_conv":
                 layers.append(Conv1d(ch, kw["features"], kw["kernel_size"],
                                      weight_norm=weight_norm, ss=ss))
+            elif kind == "adain":
+                layers.append(AdaIN(kw["dim"], ss))
             elif kind == "residual_unit":
                 inner = DilatedUnit(kw["dim"], kernel_size, kw["dilation"],
                                     activation, weight_norm, ss)
                 layers.append(Residual(inner, kw["inner_delay"], ss, fused))
             else:  # "down" / "out_conv"
                 layers.append(nn.Sequential(
-                    Activation(activation),
+                    Activation(activation, ch),
                     Conv1d(ch, kw["features"], kw["kernel_size"],
                            stride=kw.get("stride", 1),
                            in_delay=kw.get("in_delay", 0),
@@ -148,6 +239,8 @@ class EncoderV2(nn.Module):
         d = conv_delay(2 * self.kernel_size + 1, 1, 1, mode, self.in_delay)
         for r, dils in zip(self.ratios, dilations_list):
             for dil in dils:
+                if self.adain:
+                    steps.append(("adain", dict(dim=num_channels)))
                 unit_d = conv_delay(self.kernel_size, 1, dil, mode)
                 steps.append(("residual_unit",
                               dict(dim=num_channels, dilation=dil,
@@ -182,7 +275,8 @@ class GeneratorV2(nn.Module):
                  latent_size: int, kernel_size: int, dilations: Sequence,
                  keep_dim: bool = False, amplitude_modulation: bool = False,
                  activation: str = "leaky_relu", weight_norm: bool = True,
-                 fused: bool = False, ss: StreamSetup = StreamSetup()):
+                 adain: bool = False, fused: bool = False,
+                 ss: StreamSetup = StreamSetup()):
         super().__init__()
         self.data_size, self.capacity = data_size, capacity
         self.ratios, self.kernel_size = list(ratios), kernel_size
@@ -198,17 +292,20 @@ class GeneratorV2(nn.Module):
             out_channels = num_channels // (r if keep_dim else 2)
             up = ConvTranspose1d(num_channels, out_channels, 2 * r, r,
                                  weight_norm=weight_norm, in_delay=d, ss=ss)
-            layers.append(nn.Sequential(Activation(activation), up))
+            layers.append(nn.Sequential(Activation(activation, num_channels),
+                                        up))
             d = up.out_delay
             num_channels = out_channels
             for dil in dils:
+                if adain:
+                    layers.append(AdaIN(num_channels, ss))
                 inner = DilatedUnit(num_channels, kernel_size, dil,
                                     activation, weight_norm, ss)
                 layers.append(Residual(inner, inner.out_delay, ss, fused))
                 d += inner.out_delay
         wave_features = data_size * (2 if amplitude_modulation else 1)
         layers.append(nn.Sequential(
-            Activation(activation),
+            Activation(activation, num_channels),
             Conv1d(num_channels, wave_features, kernel_size * 2 + 1,
                    weight_norm=weight_norm, ss=ss)))
         self.layers = nn.ModuleList(layers)

@@ -1,23 +1,26 @@
-"""Discriminators of the ``v2`` and ``v2_fork`` presets.
+"""Discriminators of the ``v2``, ``v2_fork`` and ``v3`` presets.
 
-Port of ``rave_tpu/models/discriminators.py`` but for the Descript
-discriminator (ROADMAP A5): the ConvNet ladders, the multi-scale,
-multi-period and (1-D and 2-D) multi-scale spectral discriminators of
-v2's ``combine(periods, scales, spectral)``, and the fork's UnivNet MRD
-+ MPD and MelGAN stack.  Layouts are the port's channels-first ones:
-audio ``(B, 1, T)``, 1-D features ``(B, C, T)``, 2-D features
-``(B, C, H, W)`` with H the leading axis of the JAX package's
-``(B, H, W, C)`` (time for the MRD and the MPDs, frequency for the
-spectral discriminator), so a kernel converts by a plain transpose.
-Every multi-discriminator returns ``list[list[Tensor]]``: one feature
-list per sub-discriminator, score last.  Submodules carry the flax
-names (``mpd/period{i}``, ``msd/disc{i}``, ``msspec/spec{i}``, ...), and
-each conv list is a ``convs`` ModuleList whose ``i``-th entry is flax's
-``WNConv_{i}``.
+Port of ``rave_tpu/models/discriminators.py``: the ConvNet ladders, the
+multi-scale, multi-period and (1-D and 2-D) multi-scale spectral
+discriminators of v2's ``combine(periods, scales, spectral)``, the
+fork's UnivNet MRD + MPD and MelGAN stack, and v3's Descript (DAC)
+discriminator (MPD, MSD and band-split complex-STFT MRD).  Layouts are
+the port's channels-first ones: audio ``(B, 1, T)``, 1-D features
+``(B, C, T)``, 2-D features ``(B, C, H, W)`` with H the leading axis of
+the JAX package's ``(B, H, W, C)`` (time for the MRD and the MPDs,
+frequency for the spectral discriminator), so a kernel converts by a
+plain transpose.  Every multi-discriminator returns
+``list[list[Tensor]]``: one feature list per sub-discriminator, score
+last.  Submodules carry the flax names (``mpd/period{i}``,
+``msd/disc{i}``, ``msspec/spec{i}``, ...), and each conv list is a
+``convs`` ModuleList whose ``i``-th entry is flax's ``WNConv_{i}``;
+explicitly named flax convs (the Descript MRD's ``band{b}_conv{l}`` and
+``post``) are attributes of those names.
 
 The JAX package's TPU formulation tricks (the packed-resident spectral
-chain, grouped-conv supergrouping, the phase-decomposed dx of strided
-convs, the shift-and-add ci=1 conv) are not ported: native
+chains, the Encodec one's and the Descript MRD's, grouped-conv
+supergrouping, the phase-decomposed dx of strided convs, the
+shift-and-add ci=1 conv) are not ported: native
 ``F.conv1d``/``F.conv2d`` give the same values and gradients.  The
 MelGAN head conv takes kernels B2/B3 (:func:`~rave_tpu_torch.ops.kernels.
 ci1_conv.conv1d_ci1`) under the JAX package's shape gate.
@@ -28,6 +31,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -35,14 +39,15 @@ from torch import nn
 from .. import resolve_device
 from ..config import RAVEConfig
 from ..ops.conv import _uniform, normalize_kernel
+from ..ops.pqmf import kaiser_filter
 from ..ops.kernels.ci1_conv import conv1d_ci1
 from ..ops.stft import stft
 
 NEG_SLOPE = 0.2
 
 
-def _lrelu(x: torch.Tensor) -> torch.Tensor:
-    return F.leaky_relu(x, NEG_SLOPE)
+def _lrelu(x: torch.Tensor, slope: float = NEG_SLOPE) -> torch.Tensor:
+    return F.leaky_relu(x, slope)
 
 
 class WNConv(nn.Module):
@@ -107,7 +112,8 @@ def _avg_pool_1d(x: torch.Tensor, window: int = 2) -> torch.Tensor:
 
 
 def _convnet(convs: nn.ModuleList, x: torch.Tensor,
-             after_activation: bool = False) -> list[torch.Tensor]:
+             after_activation: bool = False,
+             slope: float = NEG_SLOPE) -> list[torch.Tensor]:
     """Each conv but the last and a leaky ReLU, each giving a feature
     taken before the activation (or after it); the last conv's output
     is the score."""
@@ -115,10 +121,10 @@ def _convnet(convs: nn.ModuleList, x: torch.Tensor,
     for conv in convs[:-1]:
         x = conv(x)
         if after_activation:
-            x = _lrelu(x)
+            x = _lrelu(x, slope)
         feats.append(x)
         if not after_activation:
-            x = _lrelu(x)
+            x = _lrelu(x, slope)
     feats.append(convs[-1](x))
     return feats
 
@@ -401,10 +407,143 @@ class StackDiscriminators(nn.Module):
         return out
 
 
-def _descript_raises():
-    raise NotImplementedError(
-        "the Descript discriminator is not ported to rave_tpu_torch yet "
-        "(ROADMAP A5)")
+DESCRIPT_BANDS = ((0.0, 0.1), (0.1, 0.25), (0.25, 0.5), (0.5, 0.75),
+                  (0.75, 1.0))
+DESCRIPT_SLOPE = 0.1
+
+
+class DescriptMPD(nn.Module):
+    """Period discriminator of the Descript stack: time reflect-padded on
+    the right to a multiple of ``period`` and folded into ``(T/p, p)``,
+    convs of 32, 128, 512 and 1024 channels (kernel ``(5, 1)``, stride
+    ``(3, 1)``), a 1024-channel one of stride 1 and a ``(3, 1)`` score
+    conv; leaky ReLU 0.1, features taken after it."""
+
+    def __init__(self, period: int):
+        super().__init__()
+        self.period = period
+        convs, ci = [], 1
+        for co in (32, 128, 512, 1024):
+            convs.append(WNConv(ci, co, (5, 1), (3, 1), [(2, 2), (0, 0)]))
+            ci = co
+        convs.append(WNConv(1024, 1024, (5, 1), padding=[(2, 2), (0, 0)]))
+        convs.append(WNConv(1024, 1, (3, 1), padding=[(1, 1), (0, 0)]))
+        self.convs = nn.ModuleList(convs)
+
+    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+        B, C, T = x.shape
+        p = self.period
+        pad = (p - T % p) % p
+        if pad:
+            x = F.pad(x, (0, pad), mode="reflect")
+        z = x.reshape(B, C, x.shape[2] // p, p)
+        return _convnet(self.convs, z, True, DESCRIPT_SLOPE)
+
+
+class DescriptMSD(nn.Module):
+    """Scale discriminator of the Descript stack: a kaiser anti-aliased
+    downsample by ``scale`` (none at 1), then a grouped conv ladder
+    (head k 15, 1 -> 16, on kernels B2/B3 where the gate allows); leaky
+    ReLU 0.1, features taken after it."""
+
+    SPECS = ((16, 15, 1, 1), (64, 41, 4, 4), (256, 41, 4, 16),
+             (1024, 41, 4, 64), (1024, 41, 4, 256), (1024, 5, 1, 1))
+
+    def __init__(self, scale: int = 1):
+        super().__init__()
+        self.scale = scale
+        if scale != 1:
+            filt = kaiser_filter(math.pi / scale, 140)
+            if not len(filt) % 2:
+                filt = np.pad(filt, (1, 0))
+            self.register_buffer("filt", torch.tensor(
+                filt, dtype=torch.float32).reshape(1, 1, -1),
+                persistent=False)
+        convs, ci = [], 1
+        for co, k, st, g in self.SPECS:
+            convs.append(WNConv(ci, co, (k,), (st,), [(k // 2, k // 2)],
+                                groups=g))
+            ci = co
+        convs.append(WNConv(ci, 1, (3,), padding=[(1, 1)]))
+        self.convs = nn.ModuleList(convs)
+
+    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+        if self.scale != 1:
+            x = F.conv1d(x, self.filt.to(x.dtype), stride=self.scale,
+                         padding=self.filt.shape[-1] // 2)
+        return _convnet(self.convs, x, True, DESCRIPT_SLOPE)
+
+
+class DescriptMRD(nn.Module):
+    """Resolution discriminator of the Descript stack: the complex STFT
+    (window ``window_length``, hop a quarter of it), real and imaginary
+    parts as two channels over ``(frames, bins)``, split into the
+    :data:`DESCRIPT_BANDS` of the bins; per band (``band{b}_conv{l}``)
+    four ``(3, 9)`` convs of 32 channels (stride 2 along frequency but
+    the first) and a ``(3, 3)`` one, leaky ReLU 0.1, features after it;
+    the bands concatenated along frequency into the ``post`` score
+    conv."""
+
+    SPECS = (((3, 9), (1, 1)), ((3, 9), (1, 2)), ((3, 9), (1, 2)),
+             ((3, 9), (1, 2)), ((3, 3), (1, 1)))
+
+    def __init__(self, window_length: int, hop_factor: float = 0.25,
+                 bands=DESCRIPT_BANDS):
+        super().__init__()
+        self.window_length = window_length
+        self.hop = int(hop_factor * window_length)
+        n_bins = window_length // 2 + 1
+        self.bands = [(int(b0 * n_bins), int(b1 * n_bins)) for b0, b1 in bands]
+        for bi in range(len(self.bands)):
+            ci = 2
+            for li, (k, st) in enumerate(self.SPECS):
+                pad = [((k[0] - 1) // 2,) * 2, ((k[1] - 1) // 2,) * 2]
+                self.add_module(f"band{bi}_conv{li}",
+                                WNConv(ci, 32, k, st, pad))
+                ci = 32
+        self.post = WNConv(32, 1, (3, 3), padding=[(1, 1), (1, 1)])
+
+    def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
+        s = stft(x[:, 0], self.window_length, self.hop)
+        z = torch.stack([s.real, s.imag], 1).to(x.dtype)
+        feats, outs = [], []
+        for bi, (b0, b1) in enumerate(self.bands):
+            band = z[..., b0:b1]
+            for li in range(len(self.SPECS)):
+                band = _lrelu(getattr(self, f"band{bi}_conv{li}")(band),
+                              DESCRIPT_SLOPE)
+                feats.append(band)
+            outs.append(band)
+        feats.append(self.post(torch.cat(outs, dim=3)))
+        return feats
+
+
+class DescriptDiscriminator(nn.Module):
+    """MPDs over ``periods`` (``mpd{i}``), MSDs over ``rates``
+    (``msd{i}``, none by default) and MRDs over ``fft_sizes``
+    (``mrd{i}``), after removing the clip's mean and scaling its peak to
+    0.8, in float32 (the JAX package keeps this preprocess in float32:
+    the backward of ``1 / (peak + 1e-9)`` blows up in low precision on
+    near-silent generator output)."""
+
+    def __init__(self, periods: Sequence[int] = (2, 3, 5, 7, 11),
+                 rates: Sequence[int] = (),
+                 fft_sizes: Sequence[int] = (2048, 1024, 512)):
+        super().__init__()
+        self.subs = []
+        for prefix, make, args in (("mpd", DescriptMPD, periods),
+                                   ("msd", DescriptMSD, rates),
+                                   ("mrd", DescriptMRD, fft_sizes)):
+            for i, a in enumerate(args):
+                self.add_module(f"{prefix}{i}", make(a))
+                self.subs.append(f"{prefix}{i}")
+
+    def forward(self, x: torch.Tensor) -> list[list[torch.Tensor]]:
+        x32 = x.float()
+        x32 = x32 - x32.mean(dim=2, keepdim=True)
+        x = (0.8 * x32 / (x32.abs().amax(dim=2, keepdim=True) + 1e-9)
+             ).to(x.dtype)
+        return [getattr(self, name)(x) for name in self.subs]
 
 
 class CombineDiscriminators(nn.Module):
@@ -431,7 +570,7 @@ class CombineDiscriminators(nn.Module):
                                 spectral_scales, capacity)),
             "univnet": ("univnet", UnivNetDiscriminator),
             "melgan_stack": ("stack", StackDiscriminators),
-            "descript": ("descript", _descript_raises),
+            "descript": ("descript", DescriptDiscriminator),
         }
         self.names = []
         for m in self.members:
@@ -479,7 +618,8 @@ def build_discriminator(cfg: RAVEConfig, device="cuda") -> nn.Module:
         "spectral_1d": MultiScaleSpectralDiscriminator1d,
         "univnet": UnivNetDiscriminator,
         "melgan_stack": StackDiscriminators,
-        "descript": _descript_raises,
+        "descript": lambda: DescriptDiscriminator(
+            tuple(d.periods), fft_sizes=tuple(d.fft_sizes)),
     }
     if d.kind not in kinds:
         raise ValueError(f"unknown discriminator kind {d.kind!r}")

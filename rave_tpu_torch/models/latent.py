@@ -1,6 +1,6 @@
-"""Variational latent head (port of ``VariationalHead`` in
-``rave_tpu/models/latent.py``).  Channels-first: ``z`` is
-``(B, 2 * latent, T)``."""
+"""Latent heads: variational and discrete (port of ``VariationalHead``
+and ``DiscreteHead`` in ``rave_tpu/models/latent.py``).  Channels-first:
+``z`` is ``(B, n_out * latent, T)``."""
 
 from __future__ import annotations
 
@@ -9,6 +9,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .quantization import ResidualVectorQuantization, Sampler
 
 
 class VariationalHead(nn.Module):
@@ -40,3 +42,35 @@ class VariationalHead(nn.Module):
     @staticmethod
     def num_out() -> int:
         return 2
+
+
+class DiscreteHead(nn.Module):
+    """Residual VQ head.  ``enabled`` (the quantize gate of
+    :func:`~rave_tpu_torch.train.schedules.quantize_enabled`) mixes
+    ``gate * zq + (1 - gate) * z`` and gates the commitment loss; the RVQ
+    runs first in any case, so a train pass updates the codebooks even
+    with the gate off, as in the JAX package.  Noise augmentation is the
+    noise heads' (ROADMAP A6)."""
+
+    def __init__(self, num_quantizers: int, latent_size: int,
+                 codebook_size: int = 1024):
+        super().__init__()
+        self.rvq = ResidualVectorQuantization(num_quantizers, latent_size,
+                                              codebook_size)
+
+    def forward(self, z: torch.Tensor, train: bool = False, enabled=True,
+                sampler: Optional[Sampler] = None):
+        """``z`` ``(B, latent, T)`` -> ``(z, commitment loss)``."""
+        zq, diff, _ = self.rvq(z, train, sampler)
+        gate = torch.as_tensor(enabled, dtype=z.dtype, device=z.device)
+        return gate * zq + (1 - gate) * z, gate * diff
+
+    def encode(self, z: torch.Tensor) -> torch.Tensor:
+        return self.rvq.encode(z)
+
+    def decode(self, idx: torch.Tensor) -> torch.Tensor:
+        return self.rvq.decode(idx)
+
+    @staticmethod
+    def num_out() -> int:
+        return 1

@@ -1,12 +1,16 @@
-"""RAVE v2 codec: PQMF + EncoderV2 + variational mean + GeneratorV2, and
-the voice-conversion fork's speaker-conditioned variant.
+"""RAVE v2 codec: PQMF + EncoderV2 + latent head + GeneratorV2, and the
+voice-conversion fork's speaker-conditioned variant.
 
-Port of ``rave_tpu/models/rave.py`` for the v2 and ``v2_fork`` presets:
-``encode`` takes the variational mean (deterministic) or, speaker-
+Port of ``rave_tpu/models/rave.py`` for the v2, ``v2_fork``, ``discrete``,
+``v3`` and ``discrete_v3`` presets (Snake and AdaIN are options of the
+blocks): ``encode`` takes the variational mean (deterministic), the
+residual-VQ quantized latent of the discrete head or, speaker-
 conditioned, the raw content latent with the frozen speaker embedding
-appended; ``decode`` runs the generator and PQMF synthesis; ``forward``
-is ``decode(encode(x))``; ``convert`` conditions a source's content on a
-target's speaker embedding.  The same module serves offline
+appended; ``encode_indices`` / ``decode_indices`` are the discrete head's
+integer codes ``(B, n_quantizers, T_z)``; ``decode`` runs the generator
+and PQMF synthesis; ``forward`` is ``decode(encode(x))``; ``convert``
+conditions a source's content on a target's speaker embedding.  The same
+module serves offline
 (``streaming=False``) and chunked streaming (``streaming=True``, caches
 carried in the conv modules; the speaker encoder always runs offline).
 With ``train_speaker_encoder`` the speaker encoder trains with the rest
@@ -35,8 +39,9 @@ from ..config import RAVEConfig
 from ..ops.conv import StreamSetup
 from ..ops.pitch import pitch_feature
 from ..ops.pqmf import PQMF, _pqmf_kernels
-from .blocks import EncoderV2, GeneratorV2
-from .latent import VariationalHead
+from .blocks import AdaIN, EncoderV2, GeneratorV2
+from .latent import DiscreteHead, VariationalHead
+from .quantization import Sampler, sample_vectors
 from .speaker import AAMSpeakerHead, SpeakerRAVE
 
 
@@ -45,14 +50,12 @@ def check_supported(cfg: RAVEConfig) -> None:
     unsupported = [
         (cfg.encoder_version != "v2" or cfg.generator_version != "v2",
          "v1 encoder/generator blocks", "A6"),
-        (cfg.activation != "leaky_relu", f"activation {cfg.activation!r}", "A5"),
-        (cfg.adain, "AdaIN", "A5"),
         (cfg.use_noise, "the noise generator", "A6"),
         (cfg.use_mel_encoder or cfg.encoder_gru_layers
          or cfg.decoder_gru_layers, "the mel front end and GRU layers", "A7"),
-        (cfg.latent_head == "discrete", "the discrete latent head", "A4"),
-        (cfg.latent_head in ("wasserstein", "spherical")
-         or cfg.noise_augmentation, f"the {cfg.latent_head} latent head", "A6"),
+        (cfg.latent_head in ("wasserstein", "spherical"),
+         f"the {cfg.latent_head} latent head", "A6"),
+        (cfg.noise_augmentation, "noise augmentation of the latent", "A6"),
         (cfg.compute_dtype != "float32",
          f"compute_dtype {cfg.compute_dtype!r}", "A10"),
     ]
@@ -60,7 +63,7 @@ def check_supported(cfg: RAVEConfig) -> None:
         if bad:
             raise NotImplementedError(
                 f"{what} is not ported to rave_tpu_torch yet (ROADMAP {item})")
-    if cfg.latent_head != "variational":
+    if cfg.latent_head not in ("variational", "discrete"):
         raise ValueError(f"unknown latent head {cfg.latent_head!r}")
     speaker_norm(cfg)
 
@@ -79,9 +82,11 @@ def speaker_norm(cfg: RAVEConfig) -> str:
 
 def encoder_n_out(cfg: RAVEConfig) -> int:
     """Latent channels per latent dim: 2 (mean, scale) for the variational
-    head, 1 when speaker-conditioned (the fork feeds the raw latent to
-    the decoder and trains the encoder by unit CE only)."""
-    return 1 if cfg.speaker_embedding_size else VariationalHead.num_out()
+    head, 1 for the discrete head or when speaker-conditioned (the fork
+    feeds the raw latent to the decoder and trains the encoder by unit CE
+    only)."""
+    return (VariationalHead.num_out() if cfg.latent_head == "variational"
+            and not cfg.speaker_embedding_size else 1)
 
 
 def pqmf_in_delay(cfg: RAVEConfig) -> int:
@@ -101,8 +106,8 @@ def make_encoder(cfg: RAVEConfig, ss: StreamSetup) -> EncoderV2:
         kernel_size=cfg.kernel_size,
         dilations=cfg.encoder_dilations or cfg.dilations,
         keep_dim=cfg.keep_dim, activation=cfg.activation,
-        weight_norm=cfg.weight_norm, fused=cfg.fused_kernels,
-        in_delay=pqmf_in_delay(cfg), ss=ss)
+        weight_norm=cfg.weight_norm, adain=cfg.adain,
+        fused=cfg.fused_kernels, in_delay=pqmf_in_delay(cfg), ss=ss)
 
 
 def make_decoder(cfg: RAVEConfig, ss: StreamSetup) -> GeneratorV2:
@@ -112,7 +117,7 @@ def make_decoder(cfg: RAVEConfig, ss: StreamSetup) -> GeneratorV2:
         dilations=cfg.dilations, keep_dim=cfg.keep_dim,
         amplitude_modulation=cfg.amplitude_modulation,
         activation=cfg.activation, weight_norm=cfg.weight_norm,
-        fused=cfg.fused_kernels, ss=ss)
+        adain=cfg.adain, fused=cfg.fused_kernels, ss=ss)
 
 
 def band_frame_delay(cfg: RAVEConfig, ss: StreamSetup) -> int:
@@ -198,7 +203,9 @@ class RAVE(nn.Module):
         self.streaming = streaming
         ss = stream_setup(cfg, streaming)
         self.encoder = make_encoder(cfg, ss)
-        self.latent = VariationalHead()
+        self.latent = (DiscreteHead(cfg.num_quantizers, cfg.latent_size,
+                                    cfg.codebook_size)
+                       if cfg.latent_head == "discrete" else VariationalHead())
         self.decoder = make_decoder(cfg, ss)
         # composite streaming delay at the band rate; an odd lag flips
         # the synthesis-side reverse_half mask
@@ -235,10 +242,14 @@ class RAVE(nn.Module):
         self.to(device)
 
     def set_train_mode(self, on: bool) -> None:
-        """The JAX module's ``train_mode``: a BatchNorm speaker encoder
-        trained from scratch normalises by batch statistics (and advances
-        its running ones) while it holds, by stored ones otherwise."""
+        """The JAX module's ``train_mode``: AdaIN is the identity while it
+        holds; a BatchNorm speaker encoder trained from scratch normalises
+        by batch statistics (and advances its running ones) while it
+        holds, by stored ones otherwise."""
         self.train_mode = on
+        for m in self.modules():
+            if isinstance(m, AdaIN):
+                m.train_mode = on
         if self.speaker_encoder is not None:
             self.speaker_encoder.train_bn = (
                 on and self.cfg.train_speaker_encoder
@@ -291,10 +302,21 @@ class RAVE(nn.Module):
 
     def reparametrize(self, z: torch.Tensor,
                       eps: Optional[torch.Tensor] = None,
-                      generator: Optional[torch.Generator] = None):
-        """Pre-regularisation latent ``(B, 2 * latent, T_z)`` -> the
-        sample ``(B, latent, T_z)`` and the KL, with the noise ``eps``
-        (shaped like the sample) or drawn from ``generator``."""
+                      generator: Optional[torch.Generator] = None,
+                      train: bool = False, enabled=True,
+                      sampler: Optional[Sampler] = None):
+        """Pre-regularisation latent -> ``(z, regulariser)``.  Variational:
+        ``(B, 2 * latent, T_z)`` -> the sample ``(B, latent, T_z)`` and
+        the KL, with the noise ``eps`` (shaped like the sample) or drawn
+        from ``generator``.  Discrete: the quantized latent (gated by
+        ``enabled``) and the commitment loss; a ``train`` pass updates
+        the codebooks, its random rows drawn by ``sampler`` or else from
+        ``generator``."""
+        if isinstance(self.latent, DiscreteHead):
+            if train and sampler is None:
+                def sampler(samples, num):
+                    return sample_vectors(samples, num, generator)
+            return self.latent(z, train, enabled, sampler)
         return self.latent(z, eps, generator)
 
     def project_units(self, z: torch.Tensor,
@@ -322,8 +344,8 @@ class RAVE(nn.Module):
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """Audio ``(B, T, 1)`` -> latent ``(B, T_z, C)``: the variational
-        mean, or the raw latent and the speaker embedding; then the
-        normalised f0 of a pitch config."""
+        mean or the quantized latent, or the raw latent and the speaker
+        embedding; then the normalised f0 of a pitch config."""
         bands = self.pqmf_forward(x)
         return self.inference_latent(x, bands,
                                      self.encode_input(bands)).transpose(1, 2)
@@ -332,13 +354,35 @@ class RAVE(nn.Module):
                          z_pre: torch.Tensor) -> torch.Tensor:
         """The decoder's latent ``(B, C, T_z)`` at inference from the
         audio ``x``, its ``bands`` and their pre-regularisation latent:
-        the variational mean, or the raw latent and the speaker
-        embedding; then :meth:`append_pitch`."""
-        if self.speaker_encoder is None:
+        the variational mean or the quantized latent, or the raw latent;
+        the speaker embedding appended where there is a speaker encoder;
+        then :meth:`append_pitch`."""
+        if isinstance(self.latent, DiscreteHead):
+            z, _ = self.latent(z_pre)
+        elif self.speaker_encoder is None:
             z, _ = VariationalHead.mean_scale(z_pre)
         else:
-            z = self.condition(z_pre, self.speaker_embedding(bands))
+            z = z_pre
+        if self.speaker_encoder is not None:
+            z = self.condition(z, self.speaker_embedding(bands))
         return self.append_pitch(z, x)
+
+    def _discrete_head(self, what: str) -> DiscreteHead:
+        if not isinstance(self.latent, DiscreteHead):
+            raise ValueError(f"{what} requires latent_head=discrete")
+        return self.latent
+
+    def encode_indices(self, x: torch.Tensor) -> torch.Tensor:
+        """Audio ``(B, T, 1)`` -> RVQ indices ``(B, n_quantizers, T_z)``
+        int64 (discrete head only)."""
+        head = self._discrete_head("encode_indices")
+        return head.encode(self.encode_input(self.pqmf_forward(x)))
+
+    def decode_indices(self, idx: torch.Tensor) -> torch.Tensor:
+        """RVQ indices ``(B, n_quantizers, T_z)`` -> audio ``(B, T, 1)``
+        (discrete head only)."""
+        head = self._discrete_head("decode_indices")
+        return self.pqmf_inverse(self.decode_bands(head.decode(idx)))
 
     def decode_bands(self, z: torch.Tensor) -> torch.Tensor:
         """Latent ``(B, C, T_z)`` -> bands ``(B, M, T/M)``."""

@@ -56,7 +56,12 @@ class Cached(nn.Module):
     state dict).  A :class:`StreamStep` sets it before a chunk and reads
     it back after; left unset, it is created as zeros at the first chunk
     on the chunk's device and batch size.  :meth:`reset_cache` forgets it.
+    A stream starts from :meth:`initial` of each cache (zeros, but for a
+    module whose state starts elsewhere); ``carry_last`` state (AdaIN's)
+    comes after every cache in a stream's carry.
     """
+
+    carry_last = False
 
     def __init__(self):
         super().__init__()
@@ -64,6 +69,10 @@ class Cached(nn.Module):
 
     def reset_cache(self) -> None:
         self.cache = None
+
+    def initial(self, like: torch.Tensor) -> torch.Tensor:
+        """The state a stream starts from, shaped like ``like``."""
+        return torch.zeros_like(like)
 
     def _zeros_cache(self, x: torch.Tensor, channels: int,
                      length: int) -> torch.Tensor:
@@ -214,17 +223,19 @@ class Delay(Cached):
 
 def stream_caches(root: nn.Module, fn, *args) -> tuple[list, list]:
     """The :class:`Cached` modules of ``root`` that ``fn`` carries state
-    in, in module order, and a zero cache for each: ``fn`` runs once on
-    ``args`` (zeros shaped like a chunk) from unset caches, as the JAX
-    package initialises its ``"cache"`` collection.  Every cache of
-    ``root`` is unset again after."""
+    in, in module order (``carry_last`` ones after the others), and the
+    initial state of each: ``fn`` runs once on ``args`` (zeros shaped
+    like a chunk) from unset caches, as the JAX package initialises its
+    ``"cache"`` collection.  Every cache of ``root`` is unset again
+    after."""
     mods = [m for m in root.modules() if isinstance(m, Cached)]
     for m in mods:
         m.reset_cache()
     with torch.no_grad():
         fn(*args)
-    used = [m for m in mods if m.cache is not None]
-    caches = [torch.zeros_like(m.cache) for m in used]
+    used = sorted((m for m in mods if m.cache is not None),
+                  key=lambda m: m.carry_last)
+    caches = [m.initial(m.cache) for m in used]
     for m in mods:
         m.reset_cache()
     return used, caches

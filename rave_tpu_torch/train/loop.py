@@ -1,6 +1,8 @@
-"""The v2 and ``v2_fork`` train steps and the eval step.
+"""The v2, ``v2_fork``, ``discrete`` and ``v3`` train steps and the eval
+step.
 
-Port of ``rave_tpu/train/loop.py`` for the variational latent head:
+Port of ``rave_tpu/train/loop.py`` for the variational and discrete
+latent heads:
 
 * Adam groups with ``betas=(adam_b1, adam_b2)`` and eps 1e-8: ENC
   (encoder, latent head, unit CE projection), DEC (decoder), DIS
@@ -18,19 +20,24 @@ Port of ``rave_tpu/train/loop.py`` for the variational latent head:
   forward without gradient, its latent noise given or drawn as a G
   step's is;
 * the upstream branch (v2) samples the latent with noise ``eps``, given
-  to the step or drawn from the state's generator, and adds the KL
-  times the beta schedule; its reconstruction loss is
-  ``audio_distance_v1`` over the bands and over the audio.  The fork's
-  branch draws no random numbers (the decoder sees the detached raw
-  latent and the speaker embedding, no noise), so its step is
-  deterministic.  A pitch config appends the clean signal's normalised
-  f0 to the decoder latent in both branches, by the batch's
+  to the step or drawn from the state's generator, and adds the KL times
+  the beta schedule; its reconstruction loss is ``audio_distance_v1``
+  over the bands and over the audio.  The fork's branch draws no random
+  numbers (the decoder sees the detached raw latent and the speaker
+  embedding, no noise), so its step is deterministic.  The discrete
+  branch quantizes the latent through the residual VQ, gated by
+  :func:`~rave_tpu_torch.train.schedules.quantize_enabled`, and adds
+  the commitment loss times the beta schedule; its codebooks update in D
+  and G steps alike (a D step runs the generator's forward too), their
+  random rows drawn by the step's ``sampler`` or else from the state's
+  generator.  A pitch config appends the clean signal's normalised f0 to
+  the decoder latent in both branches, by the batch's
   ``f0_median``/``f0_std`` (speaker statistics) where it has them.  With
-  ``speaker_classes`` and ``batch["speaker"]`` it
-  adds the AAM speaker CE (``weights["speaker_ce"]``) and, with
-  ``latent_adversary_weight``, the adversary's CE on the latent through
-  gradient reversal; a BatchNorm speaker encoder in training mode
-  advances its running statistics in D and G steps alike;
+  ``speaker_classes`` and ``batch["speaker"]`` it adds the AAM speaker
+  CE (``weights["speaker_ce"]``) and, with ``latent_adversary_weight``,
+  the adversary's CE on the latent through gradient reversal; a
+  BatchNorm speaker encoder in training mode advances its running
+  statistics in D and G steps alike;
 * with ``ema_decay`` the state keeps an exponential moving average of
   the generator's parameters, updated after each G step.
 """
@@ -249,14 +256,16 @@ def receptive_field_frames(cfg: RAVEConfig) -> tuple[int, int]:
     return rf_frames, rf_frames
 
 
-def _forward_losses(cfg: RAVEConfig, model: RAVE, batch: Mapping,
+def _forward_losses(cfg: RAVEConfig, model: RAVE, batch: Mapping, step: int,
                     eps: Optional[torch.Tensor] = None,
-                    generator: Optional[torch.Generator] = None) -> dict:
+                    generator: Optional[torch.Generator] = None,
+                    sampler=None) -> dict:
     """Generator-side forward: every loss term but the GAN's, the latent
     regulariser (0 for the fork), the speaker terms (``aux``, see
     :func:`speaker_terms`) and the cropped real and fake audio.  The
-    upstream branch samples the latent with ``eps``, or draws it from
-    ``generator``."""
+    variational branch samples the latent with ``eps``, or draws it from
+    ``generator``; the discrete branch quantizes it in a train pass
+    (``sampler``, else ``generator``)."""
     x = batch["x"]
     bands_x = model.pqmf_forward(x)
     bands_xp = (model.pqmf_forward(batch["x_perturbed"])
@@ -277,7 +286,9 @@ def _forward_losses(cfg: RAVEConfig, model: RAVE, batch: Mapping,
         # learns from the reconstruction and GAN terms too)
         z_dec = model.condition(z_pre.detach(), emb)
     else:
-        z_dec, reg = model.reparametrize(z_pre, eps, generator)
+        z_dec, reg = model.reparametrize(
+            z_pre, eps, generator, train=True,
+            enabled=schedules.quantize_enabled(step, cfg), sampler=sampler)
     # a pitch config: the normalised f0 of the clean signal (a function
     # of the data alone, so without gradient), by the batch's speaker
     # statistics where it has them, else by the item's own
@@ -354,9 +365,10 @@ def _frozen(module: torch.nn.Module):
 
 
 def _generator_step(cfg: RAVEConfig, state: TrainState, batch,
-                    eps: Optional[torch.Tensor]) -> dict:
+                    eps: Optional[torch.Tensor], sampler) -> dict:
     with _frozen(state.disc):
-        out = _forward_losses(cfg, state.model, batch, eps, state.generator)
+        out = _forward_losses(cfg, state.model, batch, state.step, eps,
+                              state.generator, sampler)
         loss_terms = dict(out["dists"])
         if not cfg.speaker_embedding_size:
             loss_terms["regularization"] = out["reg"] * schedules.beta_factor(
@@ -400,9 +412,10 @@ def _generator_step(cfg: RAVEConfig, state: TrainState, batch,
 
 
 def _discriminator_step(cfg: RAVEConfig, state: TrainState, batch,
-                        eps: Optional[torch.Tensor]) -> dict:
+                        eps: Optional[torch.Tensor], sampler) -> dict:
     with torch.no_grad():
-        out = _forward_losses(cfg, state.model, batch, eps, state.generator)
+        out = _forward_losses(cfg, state.model, batch, state.step, eps,
+                              state.generator, sampler)
     loss_dis, _, _ = _gan_terms(cfg, state.disc, out["x"], out["y"])
     state.dis_opt.zero_grad(set_to_none=True)
     loss_dis.backward()
@@ -411,23 +424,27 @@ def _discriminator_step(cfg: RAVEConfig, state: TrainState, batch,
 
 
 def make_train_step(cfg: RAVEConfig):
-    """``train_step(state, batch, eps=None) -> metrics``: one D or G step
+    """``train_step(state, batch, eps=None, sampler=None) -> metrics``:
+    one D or G step
     chosen by ``state.step``, which it then advances.  ``batch`` holds
     ``x`` ``(B, T, 1)`` float32, optionally ``x_perturbed`` (same shape),
     ``units`` ``(B, frames)`` int64 and, for a pitch config,
     ``f0_median``/``f0_std`` ``(B,)`` float32, on the state's device.  ``eps``
-    ``(B, latent, T_z)`` is the upstream branch's latent noise; without
-    it the step draws it from ``state.generator``.  Metric values are
+    ``(B, latent, T_z)`` is the variational branch's latent noise;
+    without it the step draws it from ``state.generator``.  ``sampler``
+    ``(samples, num) -> rows`` draws the discrete branch's k-means seeds
+    and fresh codes (default: rows with replacement from
+    ``state.generator``).  Metric values are
     0-d tensors on that device (or 0.0 for an untaken term), plus
     ``beta`` and ``warmed_up`` of the step taken."""
 
     def train_step(state: TrainState, batch: Mapping,
-                   eps: Optional[torch.Tensor] = None) -> dict:
+                   eps: Optional[torch.Tensor] = None, sampler=None) -> dict:
         step = state.step
         if schedules.is_discriminator_step(step, cfg):
-            metrics = _discriminator_step(cfg, state, batch, eps)
+            metrics = _discriminator_step(cfg, state, batch, eps, sampler)
         else:
-            metrics = _generator_step(cfg, state, batch, eps)
+            metrics = _generator_step(cfg, state, batch, eps, sampler)
         state.step = step + 1
         metrics["beta"] = schedules.beta_factor(step, cfg)
         metrics["warmed_up"] = float(schedules.warmed_up(step, cfg))
@@ -439,9 +456,10 @@ def make_train_step(cfg: RAVEConfig):
 def make_eval_step(cfg: RAVEConfig):
     """``eval_step(state, batch) -> (metrics, y, z_mean)``: the
     ``audio_distance_v1`` (``validation``) between ``x`` and the full
-    deterministic forward ``y`` ``(B, T, 1)``, and the first half of the
-    pre-regularisation latent's channels ``(B, T_z, C / 2)`` (the
-    posterior mean, which ``latent_stats.fit_latent_pca`` takes).  With
+    deterministic forward ``y`` ``(B, T, 1)``, and the pre-regularisation
+    latent ``(B, T_z, C)``, its first half of the channels for a
+    variational head (the posterior mean, which
+    ``latent_stats.fit_latent_pca`` takes).  With
     ``units`` in the batch and unit CE in the config, also
     ``val_unit_ce`` and ``val_unit_accuracy``.  The model runs with
     ``train_mode`` off, as the JAX eval step builds it."""
@@ -459,7 +477,9 @@ def make_eval_step(cfg: RAVEConfig):
                 x[:, :t, 0], y[:, :t, 0], cfg.stft_scales, cfg.log_epsilon)}
             # the JAX package halves the channels whenever the head is
             # variational, the fork's single-channel latent included
-            z_mean = z_pre.chunk(2, dim=1)[0].transpose(1, 2)
+            z_mean = (z_pre.chunk(2, dim=1)[0]
+                      if cfg.latent_head == "variational" else z_pre
+                      ).transpose(1, 2)
             if cfg.hubert_units > 0 and "units" in batch:
                 ce, acc = unit_ce_terms(model, z_pre, batch["units"],
                                         cfg.hubert_units)

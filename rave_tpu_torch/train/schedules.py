@@ -1,8 +1,6 @@
 """Training schedules as plain functions of the integer step.
 
-Port of ``rave_tpu/train/schedules.py`` for the steps the port trains.
-The RVQ gate ``quantize_enabled`` belongs to the discrete slice
-(ROADMAP A4).
+Port of ``rave_tpu/train/schedules.py``.
 """
 
 from __future__ import annotations
@@ -15,6 +13,14 @@ from ..config import RAVEConfig
 def warmed_up(step: int, cfg: RAVEConfig) -> bool:
     """Discriminators activate after phase 1."""
     return step >= cfg.phase_1_duration
+
+
+def quantize_enabled(step: int, cfg: RAVEConfig) -> bool:
+    """The RVQ gate: on once ``step >= warmup_quantize``; ``None`` (or
+    the presets' -1) means on from step 0."""
+    if cfg.warmup_quantize is None:
+        return True
+    return step >= cfg.warmup_quantize
 
 
 def beta_factor(step: int, cfg: RAVEConfig) -> float:

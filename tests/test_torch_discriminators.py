@@ -130,8 +130,15 @@ def test_build_and_unported_members_raise():
     v2 = td.build_discriminator(build_config(["v2"]), "cpu")
     assert isinstance(v2, td.CombineDiscriminators)
     assert [n for n, _ in v2.named_children()] == ["mpd", "msd", "msspec"]
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        td.build_discriminator(build_config(["v3"]), "cpu")
+    # every kind is ported now: v3's Descript discriminator builds, an
+    # unknown kind or member raises
+    assert isinstance(td.build_discriminator(build_config(["v3"]), "cpu"),
+                      td.DescriptDiscriminator)
+    with pytest.raises(ValueError, match="unknown discriminator kind"):
+        td.build_discriminator(build_config(
+            ["v2"], ["discriminator.kind=nope"]), "cpu")
+    with pytest.raises(ValueError, match="unknown discriminator member"):
+        td.CombineDiscriminators(("nope",))
 
 
 def test_converter_rejects_stray_and_missing_leaves(combine):

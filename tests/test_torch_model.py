@@ -108,10 +108,11 @@ def test_variational_head_sampling_matches():
         head(torch.from_numpy(z.transpose(0, 2, 1).copy()))
 
 
-@pytest.mark.parametrize("over", [["activation=snake"], ["adain=true"],
+@pytest.mark.parametrize("over", [["encoder_version=v1"],
+                                  ["use_mel_encoder=true"],
                                   ["use_noise=true"],
                                   ["compute_dtype=bfloat16"],
-                                  ["latent_head=discrete"],
+                                  ["noise_augmentation=4"],
                                   ["latent_head=wasserstein"]])
 def test_unsupported_options_raise(over):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):

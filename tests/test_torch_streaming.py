@@ -102,9 +102,14 @@ def test_unported_streaming_options_raise():
     cfg = build_config(["v2"], TINY)
     state = RAVE(cfg, device="cpu").state_dict()
     # stereo and the host-rate resampler are ported
-    # (tests/test_torch_resampler.py); AdaIN's streaming controls are not
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+    # (tests/test_torch_resampler.py), AdaIN's controls too
+    # (tests/test_torch_v3.py), which refuse stereo; the spherical head
+    # is not
+    with pytest.raises(ValueError, match="stereo"):
         StreamingRAVE(build_config(["v2", "adain"], TINY), state,
+                      stereo=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        StreamingRAVE(build_config(["v2", "spherical"], TINY), state,
                       device="cpu")
     with pytest.raises(ValueError, match="integer multiple"):
         StreamingRAVE(cfg, state, target_sr=3 * cfg.sampling_rate // 2,
