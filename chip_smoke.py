@@ -86,7 +86,7 @@ the last line:
    (kernels B1/B2/B3 launched 16/3/0 times per D step and 16/3/3 per G
    step; every metric finite with the JAX package's names, the speaker
    terms non-zero on G steps only; DIS moves only on D steps, ENC, DEC
-   and SPK only on G steps), three timed cycles, then a D, G pair at
+   and SPK only on G steps), two timed cycles, then a D, G pair at
    4 x 65536 against the CPU (one thread): losses and ENC/DEC/SPK
    gradient norms rtol 1e-3.  The same for a ``speaker_norm=batch``
    copy, whose running statistics advance on every step and equal the
@@ -104,7 +104,7 @@ the last line:
    phase's v2 weights in a ``StreamingRAVE`` of 2048-sample chunks, batch
    1: ``process_file_scan`` (the chunk step captured once in a CUDA
    graph, replayed per chunk) against ``process_file`` over 64 chunks
-   (max abs difference <= 2e-4; ms per chunk of each, median of 5 runs;
+   (max abs difference <= 2e-4; ms per chunk of each, median of 3 runs;
    host launch calls and device kernels per chunk by ``torch.profiler``;
    no B1 launch); ``serialize``, then ``forward.pt2``, and ``encode.pt2``
    then ``decode.pt2``, reloaded and run from ``cache_init`` over 8 chunks
@@ -162,7 +162,7 @@ the last line:
    and p80; ``serialize`` and the reloaded ``forward.pt2`` against the
    live stream over 4 chunks (2e-4).  D, G, G, G at 8 x 131072 from
    ``phase_1_duration`` (B1 6 launches per D and per G step, metrics
-   finite), three timed cycles, the codebooks finite; a D, G pair at
+   finite), two timed cycles, the codebooks finite; a D, G pair at
    4 x 65536 from zero codebooks, card vs CPU (one thread, the same
    random rows on both, ``learning_rate=1e-6``): losses, ENC/DEC
    gradient norms and the D step's DIS gradient norm rtol 1e-3, the
@@ -178,7 +178,7 @@ the last line:
    differing from the plain stream; the same workflow through
    ``process_file_scan``'s CUDA graph (which starts from and updates
    the live AdaIN state) against the eager one (2e-4).  D, G, G, G at
-   8 x 131072, three timed cycles, a profile of one G step and the
+   8 x 131072, two timed cycles, a profile of one G step and the
    Descript discriminator's device time (forward
    and data gradient on the cropped batch, frozen, as a G step runs it)
    against it; one G step at
@@ -207,6 +207,38 @@ the last line:
    Python call of the phase.  ``_smoke/`` is removed after phase 10 and
    after this one.
 
+14. a6: ``v1`` / ``onnx`` / ``raspberry``, the noise generators, the
+   Wasserstein and spherical heads, each at its full width (random
+   weights from seed 0), every random draw injected (seeded on the CPU,
+   the same on the card and the CPU).  (a) ``v2`` + ``noise`` +
+   ``wasserstein`` with ``fused_kernels=true``: the offline forward of
+   4 x 131072 (B1 exactly 16 launches), fused vs plain and card vs CPU
+   on 8192 samples (2e-4), the median of 10 batches (the plain copy in
+   turns), a profile (B1's and the FFTs' shares); ``encode`` (the raw
+   latent) then ``decode`` (the augmentation re-sampled); request 0
+   streamed in 2048-sample chunks with zero draws against the offline
+   forward with zero draws (median relative error < 0.02, no B1),
+   chunk median and p80, the seeded stream finite and the same after
+   ``reset``; D, G, G, G at 8 x 131072 (B1 16 per step, the MMD
+   finite), timed cycles, a profile of one G step; a D, G pair at 4 x
+   65536 card vs CPU (one thread, ``learning_rate=1e-6``,
+   ``log_epsilon=1e-3``): losses and ENC/DEC/DIS gradient norms rtol
+   1e-3.  (b) ``v1`` (capacity 64, noise on),
+   ``onnx`` and ``raspberry``: offline and streamed as in (a), no B1;
+   for ``v1`` also ``serialize`` (the reloaded ``forward.pt2`` against
+   the live step over 8 chunks, 2e-4), D, G, D, G at 8 x 131072
+   (EncoderV1's running statistics seen to move) and the pair with the
+   running statistics rtol 1e-4.  (c) ``v2`` + ``spherical``: offline
+   (B1 16), the angles' round trip and card vs CPU (1e-4), a stream
+   encoded, turned into angles and back, and decoded.  (d) the
+   full-width ``v3`` stream with AdaIN states that hold statistics
+   (learning off, so every block transfers), its ``forward`` compiled
+   into an AOTInductor package (by a subprocess at ``nice 19`` started
+   before phase 6, so that the compile overlaps the train phases) and
+   served by the C++ host over 32 blocks of 2048: every block and the
+   last caches (the AdaIN states after the conv caches) against
+   ``StreamingRAVE.forward`` (2e-4), p50/p80 block time.
+
 Before the last line it prints the ``nvidia-smi`` line and one JSON
 object ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -216,6 +248,7 @@ checkout that holds ``rave_tpu_torch``, it exits non-zero with no result.
 from __future__ import annotations
 
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -225,6 +258,11 @@ import time
 SEED = 0
 BATCH, SAMPLES, CHUNK = 4, 131072, 2048
 TRAIN_BATCH = 8
+# timed D, G, G, G cycles of each train phase, and timed passes of the
+# file path: 3 and 5 before phase 14 existed, cut so that the whole run
+# stays well inside its time limit (their checks run as before)
+TIMED_CYCLES = 2
+FILE_RUNS = 3
 PEAK_F32_FLOPS = 67e12   # H100 SXM, float32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12  # H100 SXM, dense TF32 on the tensor cores
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
@@ -611,7 +649,7 @@ def phase_train(torch, np, KERNELS):
     # timed cycles
     torch.cuda.reset_peak_memory_stats()
     times = {"D": [], "G": []}
-    for _ in range(3 * 4):
+    for _ in range(TIMED_CYCLES * 4):
         kind = "D" if schedules.is_discriminator_step(state.step, cfg) \
             else "G"
         times[kind].append(cuda_ms(torch, lambda: step_fn(state, batch),
@@ -754,7 +792,7 @@ def phase_train_v2(torch, np, KERNELS):
     runs = {"fused": (state, step_fn, 16), "plain": (plain, plain_fn, 0)}
     times = {r: {"D": [], "G": []} for r in runs}
     peak = {r: 0.0 for r in runs}
-    for _ in range(3):
+    for _ in range(TIMED_CYCLES):
         for name, (st, fn, b1) in runs.items():
             torch.cuda.reset_peak_memory_stats()
             for _ in range(4):
@@ -1159,7 +1197,7 @@ def phase_train_vc_step(torch, np, KERNELS, norm, device="cuda"):
     # timed cycles
     torch.cuda.reset_peak_memory_stats()
     times = {"D": [], "G": []}
-    for _ in range(3 * 4):
+    for _ in range(TIMED_CYCLES * 4):
         kind = kind_of(state)
         times[kind].append(cuda_ms(torch, lambda: step_fn(state, batch),
                                    iters=1, warmup=0))
@@ -1467,7 +1505,7 @@ def phase_export_stream(torch, np, KERNELS, state, audio, model, x_batch,
     err = float(np.abs(y_graph - y_eager).max())
     check(err <= EXPORT_TOL, f"graph vs eager file: {err}")
     per = {"graph": [], "eager": []}
-    for _ in range(5):
+    for _ in range(FILE_RUNS):
         for name, fn in (("graph", sr.process_file_scan),
                          ("eager", sr.process_file)):
             t0 = time.perf_counter()
@@ -2348,10 +2386,12 @@ def card_vs_cpu_pair(torch, np, stack, over, counts, reset, device="cuda"):
 
 
 def train_cycles(torch, np, st, fn, batch, expect, counts, reset, what,
-                 cycles=3):
-    """One D, G, G, G cycle from the state's step with ``expect``
-    launches on every step and finite metrics, then ``cycles`` timed ones:
-    median D and G ms, audio seconds per second and peak memory."""
+                 cycles=None, pattern="DGGG"):
+    """One cycle of ``pattern`` (D, G, G, G; D, G for a config with
+    ``update_discriminator_every=2``), four steps, from the state's step
+    with ``expect`` launches on every step and finite metrics, then
+    ``cycles`` (``TIMED_CYCLES``) timed ones of four steps: median D and
+    G ms, audio seconds per second and peak memory."""
     from rave_tpu_torch.train import schedules
     kind_of = lambda: ("D" if schedules.is_discriminator_step(  # noqa: E731
         st.step, st.cfg) else "G")
@@ -2365,18 +2405,21 @@ def train_cycles(torch, np, st, fn, batch, expect, counts, reset, what,
         check(all(np.isfinite(v) for v in values.values()),
               f"{what} {kind} step metrics {values}")
         warm.append({"kind": kind, "metrics": values})
-    check([c["kind"] for c in warm] == list("DGGG"), f"{what} cycle {warm}")
+    check([c["kind"] for c in warm] == list((pattern * 4)[:4]),
+          f"{what} cycle {warm}")
     times = {"D": [], "G": []}
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(cycles * 4):
+    for _ in range((cycles or TIMED_CYCLES) * 4):
         kind = kind_of()
         times[kind].append(cuda_ms(torch, lambda: fn(st, batch), iters=1,
                                    warmup=0))
     d_ms, g_ms = statistics.median(times["D"]), statistics.median(times["G"])
     audio_s = batch["x"].shape[0] * batch["x"].shape[1] / 44100
+    n_d = pattern.count("D")
     return {"warmup_cycle": warm, "d_step_ms": d_ms, "g_step_ms": g_ms,
             "d_step_ms_all": times["D"], "g_step_ms_all": times["G"],
-            "audio_s_per_s": 4 * audio_s / ((d_ms + 3 * g_ms) / 1e3),
+            "audio_s_per_s": len(pattern) * audio_s / (
+                (n_d * d_ms + (len(pattern) - n_d) * g_ms) / 1e3),
             "peak_mem_mb": torch.cuda.max_memory_allocated() / 2 ** 20}
 
 
@@ -2785,14 +2828,18 @@ def n_caches(manifest) -> int:
                for ln in manifest.read_text().splitlines()) - 1
 
 
-def serve_native(torch, np, export_dir, prefix, x, host, device="cuda"):
+def serve_native(torch, np, export_dir, prefix, x, host, device="cuda",
+                 compiled=None):
     """``<export_dir>/<prefix>.pt2`` compiled into its AOTInductor package
-    and served by the host over the blocks ``x`` ``(n, chunk)``: the
-    host's JSON line with the compile seconds, the package's size and the
-    operators it runs through the proxy executor; the blocking loop's
-    outputs ``(n, chunk)``; the last caches, flat; the package's path."""
+    (or ``compiled``, the package and its compile seconds, when it was
+    compiled already) and served by the host over the blocks ``x``
+    ``(n, chunk)``: the host's JSON line with the compile seconds, the
+    package's size and the operators it runs through the proxy executor;
+    the blocking loop's outputs ``(n, chunk)``; the last caches, flat;
+    the package's path."""
     from rave_tpu_torch.export import native
-    pkg, compile_s = native.compile_package(export_dir, prefix, device)
+    pkg, compile_s = compiled or native.compile_package(export_dir, prefix,
+                                                        device)
     files = {k: export_dir / f"{prefix}_{k}.bin" for k in ("x", "y", "c")}
     np.ascontiguousarray(x, np.float32).tofile(files["x"])
     res = native.run_host(export_dir, len(x), prefix, device,
@@ -3052,6 +3099,526 @@ def phase_native(torch, np, KERNELS, state, audio, pitch_dir, convert_res,
           "phase_seconds": time.perf_counter() - t_phase})
 
 
+# ----------------------------------------------------------------------
+# phase 14: the v1 family, the noise generators, the Wasserstein and
+# spherical heads (ROADMAP A6), and the v3 native package
+# ----------------------------------------------------------------------
+
+A6_STREAM_CHUNKS = 32    # 2048-sample chunks streamed per config
+A6_PAIR_OVER = ["n_signal=65536", "batch_size=4", "learning_rate=1e-6",
+                "log_epsilon=1e-3"]
+SPHERE_TOL = 1e-4        # max |a - b| of unit vectors and their angles
+
+
+def a6_draws(torch, cfg, B, T, seed) -> dict:
+    """Every random tensor a forward or a train step of ``cfg`` takes for
+    ``B`` x ``T`` samples, drawn on the CPU from ``seed`` (so that the
+    card and the CPU get the same numbers): ``eps`` (variational),
+    ``ref`` (Wasserstein), ``aug`` (noise augmentation), ``noise`` (the
+    noise branch's uniform draw)."""
+    g = torch.Generator().manual_seed(seed)
+    T_z = T // cfg.total_ratio()
+    out = {}
+    if cfg.latent_head == "variational":
+        out["eps"] = torch.randn(B, cfg.latent_size, T_z, generator=g)
+    if cfg.latent_head == "wasserstein":
+        out["ref"] = torch.randn(B, cfg.latent_size, T_z, generator=g)
+    if cfg.noise_augmentation:
+        out["aug"] = torch.randn(B, cfg.noise_augmentation, T_z,
+                                 generator=g)
+    v1 = cfg.generator_version == "v1"
+    if (cfg.v1_use_noise if v1 else cfg.use_noise):
+        n = 64 if v1 else math.prod(cfg.noise_ratios)
+        out["noise"] = torch.rand(B, T // cfg.n_band // n, cfg.n_band, n,
+                                  generator=g) * 2 - 1
+    return out
+
+
+def on(draws, device) -> dict:
+    return {k: v.to(device) for k, v in draws.items()}
+
+
+def forward_with(model, x, draws):
+    return model(x, draws.get("aug"), draws.get("noise"))
+
+
+def bn_buffers(torch, model) -> list:
+    from rave_tpu_torch.models.blocks import BatchNorm
+    return [b.detach().cpu().clone() for m in model.encoder.modules()
+            if isinstance(m, BatchNorm)
+            for b in (m.running_mean, m.running_var)]
+
+
+def a6_serve(torch, np, KERNELS, stack, over, audio, expect_b1, card,
+             device="cuda"):
+    """Offline serving of ``stack`` at its full width (random weights from
+    the seed, ``train_mode`` off), the draws injected: ``expect_b1``
+    launches of B1 per forward, finite output of the input's shape, fused
+    vs plain (where the config fuses) and card vs CPU on 8192 samples
+    within ``CPU_TOL``, the median of 10 batches (the plain copy in
+    turns) and a profile of one (B1's and the FFTs' shares).  Returns
+    the model, its state and the numbers."""
+    from rave_tpu_torch.config import build_config
+    from rave_tpu_torch.models.rave import RAVE
+
+    cfg = build_config(stack, over)
+    torch.manual_seed(SEED)
+    model = RAVE(cfg, device=device, train_mode=False)
+    state = model.state_dict()
+    fused = cfg.fused_kernels
+    plain = None
+    if fused:
+        plain = RAVE(build_config(stack, over + ["fused_kernels=false"]),
+                     device=device, train_mode=False)
+        plain.load_state_dict(state)
+    x = torch.tensor(audio[:, :, None], dtype=torch.float32, device=device)
+    B, T = audio.shape
+    d = on(a6_draws(torch, cfg, B, T, SEED + 3), device)
+    res = {"config": "+".join(stack), "overrides": over,
+           "params": sum(p.numel() for p in model.parameters()),
+           "batch": [B, T, 1], "draws": sorted(d)}
+    with torch.inference_mode():
+        for k in KERNELS:
+            k.launches = 0
+        y = forward_with(model, x, d)
+        torch.cuda.synchronize()
+        res["launches"] = {k.name: k.launches for k in KERNELS}
+        check(res["launches"]["residual_unit"] == expect_b1,
+              f"{stack}: B1 launches {res['launches']}")
+        check(tuple(y.shape) == tuple(x.shape), f"{stack}: {tuple(y.shape)}")
+        check(bool(torch.isfinite(y).all()), f"{stack}: output not finite")
+        if plain is not None:
+            res["max_abs_err_vs_plain"] = float(
+                (y - forward_with(plain, x, d)).abs().max())
+            check(res["max_abs_err_vs_plain"] <= OFFLINE_TOL,
+                  f"{stack} fused vs plain: {res['max_abs_err_vs_plain']}")
+        cpu = RAVE(cfg, device="cpu", train_mode=False)
+        cpu.load_state_dict({k: v.cpu() for k, v in state.items()})
+        short = a6_draws(torch, cfg, 1, 8192, SEED + 4)
+        y_card = forward_with(model, x[:1, :8192], on(short, device))
+        res["max_abs_err_vs_cpu"] = float(
+            (y_card.cpu() - forward_with(cpu, x[:1, :8192].cpu(),
+                                         short)).abs().max())
+        check(res["max_abs_err_vs_cpu"] <= CPU_TOL,
+              f"{stack} card vs cpu: {res['max_abs_err_vs_cpu']}")
+        times, times_plain = [], []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(10):
+            times.append(cuda_ms(torch, lambda: forward_with(model, x, d),
+                                 iters=1, warmup=0))
+            if plain is not None:
+                times_plain.append(cuda_ms(
+                    torch, lambda: forward_with(plain, x, d), iters=1,
+                    warmup=0))
+        res["peak_mem_mb"] = torch.cuda.max_memory_allocated() / 2 ** 20
+        prof = device_profile(torch, lambda: forward_with(model, x, d),
+                              names=("residual_unit", "fft"))
+    prof["share"] = {n: ms / prof["device_ms"]
+                     for n, ms in prof["named_ms"].items()}
+    res.update(batch_ms=statistics.median(times), batch_ms_all=times,
+               rtf=statistics.median(times) / 1e3 / (B * T / 44100),
+               profile=prof)
+    if times_plain:
+        res["plain_batch_ms"] = statistics.median(times_plain)
+    emit({"phase": "a6", "step": "offline", "card": card, **res})
+    return cfg, model, state, y, res
+
+
+def a6_stream(torch, np, KERNELS, cfg, state, audio, card, device="cuda"):
+    """Request 0 streamed in 2048-sample chunks with zero draws (the
+    deterministic path) against the offline forward with zero draws,
+    shifted by the delay (median relative error < 0.02), B1 launched
+    never, chunk latency median and p80; then with seeded draws: finite,
+    and the same again after ``reset``."""
+    from rave_tpu_torch.export.streaming import StreamingRAVE
+    from rave_tpu_torch.models.rave import RAVE
+
+    n = A6_STREAM_CHUNKS * CHUNK
+    signal = audio[0, :n].astype(np.float32)
+    model = RAVE(cfg, device=device, train_mode=False)
+    model.load_state_dict(state)
+    zero = {k: torch.zeros_like(v) for k, v in
+            a6_draws(torch, cfg, 1, n, 0).items()}
+    with torch.inference_mode():
+        off = forward_with(model, torch.tensor(signal[None, :, None],
+                                               device=device),
+                           on(zero, device))[0, :, 0].cpu().numpy()
+    del model
+    sr = StreamingRAVE(cfg, state, chunk_size=CHUNK, device=device,
+                       seed=None)
+    sr.process_file(signal[:4 * CHUNK])     # warm-up
+    sr.reset()
+    for k in KERNELS:
+        k.launches = 0
+    outs, chunk_ms = [], []
+    for i in range(0, n, CHUNK):
+        t0 = time.perf_counter()
+        out = sr.forward(signal[i:i + CHUNK].reshape(1, -1, 1))
+        torch.cuda.synchronize()
+        chunk_ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out[0, :, 0])
+    launches = {k.name: k.launches for k in KERNELS}
+    check(not any(launches.values()), f"{cfg.name} stream: {launches}")
+    y = torch.cat(outs).cpu().numpy()
+    d = sr.total_delay_samples()
+    check(d < n // 2, f"{cfg.name}: delay {d} >= half of {n}")
+    m = 2 * d + 256
+    a, b = off[m - d:n - d - 256], y[m:n - 256]
+    rel = float(np.median(np.abs(a - b)) / (np.abs(a).mean() + 1e-9))
+    check(rel < 0.02, f"{cfg.name} stream vs offline: {rel}")
+    seeded = StreamingRAVE(cfg, state, chunk_size=CHUNK, device=device,
+                           seed=SEED)
+    first = seeded.process_file(signal[:8 * CHUNK])
+    again = seeded.process_file(signal[:8 * CHUNK])
+    check(bool(np.isfinite(first).all()), f"{cfg.name}: seeded stream")
+    check(np.array_equal(first, again), f"{cfg.name}: seeded stream after "
+          "reset differs")
+    return {"chunk": CHUNK, "chunks": len(chunk_ms), "delay_samples": d,
+            "median_rel_err": rel, "launches": launches,
+            "chunk_ms_median": statistics.median(chunk_ms),
+            "chunk_ms_p80": float(np.percentile(chunk_ms, 80)),
+            "seeded_draws_finite_and_repeat": True}
+
+
+def a6_pair(torch, np, stack, over, counts, reset, device="cuda"):
+    """A D, G pair of ``stack`` at 4 x 65536 (``A6_PAIR_OVER``:
+    ``learning_rate=1e-6`` and ``log_epsilon=1e-3``, ROADMAP C) from one
+    seeded state on the card and on the CPU (one thread), every draw the
+    same on both: losses, ENC/DEC gradient norms and the D step's DIS
+    gradient norm within ``TRAIN_RTOL``, EncoderV1's running statistics
+    after each step within ``BN_RTOL`` (atol 1e-7, as phase 9's)."""
+    from rave_tpu_torch.config import build_config
+    from rave_tpu_torch.train import loop, schedules
+
+    short = build_config(stack, over + A6_PAIR_OVER)
+    torch.manual_seed(SEED + 1)
+    card = loop.TrainState(short, device=device, step=short.phase_1_duration)
+    cpu = loop.TrainState(short, device="cpu", step=short.phase_1_duration)
+    cpu.model.load_state_dict({k: v.cpu() for k, v in
+                               card.model.state_dict().items()})
+    cpu.disc.load_state_dict({k: v.cpu() for k, v in
+                              card.disc.state_dict().items()})
+    audio = voices(np, 4, short.n_signal, SEED + 2)
+    x = torch.tensor(audio[:, :, None], dtype=torch.float32)
+    d = a6_draws(torch, short, 4, short.n_signal, SEED + 5)
+    rest = {k: v for k, v in d.items() if k != "eps"}
+    eps = d.get("eps")
+    eps_card = None if eps is None else eps.to(device)
+    fn = loop.make_train_step(short)
+    threads = torch.get_num_threads()
+    rel, launches, bn = {}, {}, {}
+    for kind in ("D", "G"):
+        check(schedules.is_discriminator_step(card.step, short)
+              == (kind == "D"), f"{stack} pair: step {card.step}")
+        reset()
+        m_card = {k: float(v) for k, v in fn(
+            card, {"x": x.to(device)}, eps_card,
+            draws=on(rest, device)).items()}
+        launches[kind] = counts()
+        torch.set_num_threads(1)
+        try:
+            m_cpu = {k: float(v) for k, v in fn(
+                cpu, {"x": x}, eps, draws=rest).items()}
+        finally:
+            torch.set_num_threads(threads)
+        check(all(np.isfinite(v) for v in m_card.values()),
+              f"{stack} pair {kind}: {m_card}")
+        rel.update({f"{kind}/{k}": abs(m_card[k] - m_cpu[k])
+                    / max(abs(m_cpu[k]), 1e-12) for k in m_cpu})
+        got, want = bn_buffers(torch, card.model), bn_buffers(torch,
+                                                              cpu.model)
+        bn[kind] = max((float((g - w).abs().max())
+                        for g, w in zip(got, want)), default=0.0)
+        check(all(torch.allclose(g, w, rtol=BN_RTOL, atol=1e-7)
+                  for g, w in zip(got, want)),
+              f"{stack} running statistics after {kind}: {bn[kind]}")
+    n_card, n_cpu = grad_norms(torch, card), grad_norms(torch, cpu)
+    rel.update({f"grad_norm_{g}": abs(n_card[g] - n_cpu[g]) / n_cpu[g]
+                for g in n_cpu})
+    n_card["dis"], n_cpu["dis"] = dis_grad_norm(torch, card), \
+        dis_grad_norm(torch, cpu)
+    rel["D/grad_norm_dis"] = abs(n_card["dis"] - n_cpu["dis"]) / n_cpu["dis"]
+    check(max(rel.values()) <= TRAIN_RTOL, f"{stack} card vs cpu: {rel}")
+    return {"overrides": over + A6_PAIR_OVER, "rel_err": rel,
+            "grad_norms_card": n_card, "grad_norms_cpu": n_cpu,
+            "running_stats_max_abs_err": bn, "launches": launches}
+
+
+def a6_train(torch, np, KERNELS, stack, over, expect_b1, counts, reset,
+             device="cuda"):
+    """D, G, G, G (``v1``: D, G, D, G, its ``update_discriminator_every``
+    is 2) at 8 x 131072 from ``phase_1_duration`` (the draws from the
+    state's generator), ``expect_b1`` B1 launches per step, then
+    ``TIMED_CYCLES`` timed cycles and a profile of one G step; the
+    regulariser finite; EncoderV1's running statistics seen to move."""
+    from rave_tpu_torch.config import build_config
+    from rave_tpu_torch.train import loop
+
+    cfg = build_config(stack, over)
+    torch.manual_seed(SEED)
+    st = loop.TrainState(cfg, device=device, step=cfg.phase_1_duration,
+                         seed=SEED)
+    before = bn_buffers(torch, st.model)
+    audio = voices(np, TRAIN_BATCH, SAMPLES, SEED + 6)
+    batch = {"x": torch.tensor(audio[:, :, None], dtype=torch.float32,
+                               device=device)}
+    expect = {k.name: 0 for k in KERNELS}
+    expect["residual_unit"] = expect_b1
+    pattern = "DG" if cfg.update_discriminator_every == 2 else "DGGG"
+    step_fn = loop.make_train_step(cfg)
+    res = train_cycles(torch, np, st, step_fn, batch, expect, counts, reset,
+                       "+".join(stack), pattern=pattern)
+
+    # where the time of one G step goes
+    def one_g_step():
+        st.step = cfg.phase_1_duration + 1
+        step_fn(st, batch)
+
+    prof = device_profile(torch, one_g_step, names=("residual_unit", "fft"))
+    prof["share"] = {n: ms / prof["device_ms"]
+                     for n, ms in prof["named_ms"].items()}
+    regs = [c["metrics"]["loss_regularization"] for c in res["warmup_cycle"]
+            if c["kind"] == "G"]
+    check(all(np.isfinite(r) for r in regs), f"{stack} regulariser {regs}")
+    after = bn_buffers(torch, st.model)
+    moved = [float((a - b).abs().max()) for a, b in zip(after, before)]
+    if before:
+        check(min(moved) > 0, f"{stack}: running statistics still {moved}")
+    res.update(pattern=pattern, launches_per_step=expect,
+               regularization=regs, g_step_profile=prof,
+               running_stats_moved=moved,
+               start_step=cfg.phase_1_duration, batch=[TRAIN_BATCH,
+                                                       SAMPLES, 1])
+    return res
+
+
+def a6_launches(a6, name) -> dict:
+    """The ``kernels`` line's fields of phase 14 for kernel ``name``."""
+    return {"launches_wasserstein_forward": a6["wasserstein_forward"][name],
+            "launches_wasserstein_train_step": {
+                k: v[name] for k, v in a6["wasserstein_train_step"].items()},
+            "launches_spherical_forward": a6["spherical_forward"][name],
+            "launches_v1_forward": a6["v1_forward"][name]}
+
+
+def a6_wasserstein(torch, np, KERNELS, audio, card, counts, reset,
+                   device="cuda") -> dict:
+    """(a) of phase 14; returns B1's launches per forward and step."""
+    stack, over = ["v2", "noise", "wasserstein"], ["fused_kernels=true"]
+    cfg, model, state, _, served = a6_serve(torch, np, KERNELS, stack, over,
+                                            audio, 16, card, device)
+    x = torch.tensor(audio[:, :, None], dtype=torch.float32, device=device)
+    g = torch.Generator(device=device).manual_seed(SEED)
+    with torch.inference_mode():
+        z = model.encode(x)
+        y = model.decode(z, generator=g)
+    check(tuple(z.shape) == (len(audio), SAMPLES // cfg.total_ratio(),
+                             cfg.latent_size), f"wasserstein z {z.shape}")
+    check(tuple(y.shape) == tuple(x.shape)
+          and bool(torch.isfinite(y).all()), "wasserstein encode -> decode")
+    del model
+    stream = a6_stream(torch, np, KERNELS, cfg, state, audio, card, device)
+    emit({"phase": "a6", "step": "stream", "card": card,
+          "config": "+".join(stack), **stream})
+    train = a6_train(torch, np, KERNELS, stack, over, 16, counts, reset,
+                     device)
+    pair = a6_pair(torch, np, stack, over, counts, reset, device)
+    emit({"phase": "a6", "step": "train", "card": card,
+          "config": "+".join(stack), **train, "pair": pair})
+    return {"wasserstein_forward": served["launches"],
+            "wasserstein_train_step": {c["kind"]: train["launches_per_step"]
+                                       for c in train["warmup_cycle"]}}
+
+
+def a6_v1_family(torch, np, KERNELS, audio, card, counts, reset,
+                 device="cuda") -> dict:
+    """(b) of phase 14; returns B1's launches per forward of each."""
+    from pathlib import Path
+    from rave_tpu_torch.export.streaming import StreamingRAVE
+
+    out = {}
+    for name in ("v1", "onnx", "raspberry"):
+        cfg, model, state, _, served = a6_serve(torch, np, KERNELS, [name],
+                                                [], audio, 0, card, device)
+        out[f"{name}_forward"] = served["launches"]
+        del model
+        stream = a6_stream(torch, np, KERNELS, cfg, state, audio, card,
+                           device)
+        emit({"phase": "a6", "step": "stream", "card": card, "config": name,
+              **stream})
+        if name != "v1":
+            continue
+        # the v1 stream serialized; its reloaded forward vs the live step
+        sr = StreamingRAVE(cfg, state, chunk_size=CHUNK, device=device)
+        exp = Path(SMOKE_DIR) / "a6_v1_export"
+        sr.serialize(exp)
+        prog = torch.export.load(exp / "forward.pt2").module()
+        carry = [c.clone() for c in sr.init_caches]
+        sr.reset()
+        err = 0.0
+        with torch.no_grad():
+            for i in range(0, 8 * CHUNK, CHUNK):
+                c = torch.tensor(audio[:1, i:i + CHUNK, None],
+                                 dtype=torch.float32, device=device)
+                yp, carry = prog(carry, c)
+                err = max(err, float((yp - sr.forward(c)).abs().max()))
+        check(err <= EXPORT_TOL, f"v1 forward.pt2 vs live: {err}")
+        shutil.rmtree(exp)
+        train = a6_train(torch, np, KERNELS, ["v1"], [], 0, counts, reset,
+                         device)
+        pair = a6_pair(torch, np, ["v1"], [], counts, reset, device)
+        emit({"phase": "a6", "step": "train", "card": card, "config": "v1",
+              "serialize_max_abs_err": err, **train, "pair": pair})
+    return out
+
+
+def a6_spherical(torch, np, KERNELS, audio, card, device="cuda") -> dict:
+    """(c) of phase 14; returns B1's launches per forward."""
+    from rave_tpu_torch.export.streaming import StreamingRAVE
+    from rave_tpu_torch.models.latent import (angles_to_unit_norm_vector,
+                                              unit_norm_vector_to_angles)
+
+    cfg, model, state, _, served = a6_serve(
+        torch, np, KERNELS, ["v2", "spherical"], ["fused_kernels=true"],
+        audio, 16, card, device)
+    x = torch.tensor(audio[:, :, None], dtype=torch.float32, device=device)
+    with torch.inference_mode():
+        z = model.encode(x)
+    del model
+    ang = unit_norm_vector_to_angles(z)
+    round_trip = float((angles_to_unit_norm_vector(ang) - z).abs().max())
+    ang_err = float((ang.cpu() - unit_norm_vector_to_angles(z.cpu()))
+                    .abs().max())
+    check(round_trip <= SPHERE_TOL, f"spherical round trip {round_trip}")
+    check(ang_err <= SPHERE_TOL, f"spherical angles card vs cpu {ang_err}")
+    sr = StreamingRAVE(cfg, state, chunk_size=CHUNK, device=device)
+    ys = []
+    for i in range(0, 8 * CHUNK, CHUNK):
+        zc = sr.encode(audio[:1, i:i + CHUNK, None].astype(np.float32))
+        zc = zc.cpu().numpy()
+        back = sr.preprocess_latent(sr.postprocess_latent(zc))
+        check(float(np.abs(back - zc).max()) <= SPHERE_TOL,
+              "spherical stream latent round trip")
+        ys.append(sr.decode(back).cpu().numpy())
+    check(bool(np.isfinite(np.concatenate(ys)).all()),
+          "spherical stream: output not finite")
+    emit({"phase": "a6", "step": "spherical", "card": card,
+          "round_trip_max_abs_err": round_trip,
+          "angles_card_vs_cpu": ang_err, "streamed_chunks": len(ys)})
+    return {"spherical_forward": served["launches"]}
+
+
+def phase_a6(torch, np, KERNELS, audio, card, v3, device="cuda"):
+    """Phase 14 (see the module docstring), ``v3`` the handle of
+    :func:`a6_v3_export`.  Returns B1's launches per ``v2`` + ``noise`` +
+    ``wasserstein`` forward and D and G step, per ``v2`` + ``spherical``
+    forward and per ``v1``-family forward."""
+    counts = lambda: {k.name: k.launches for k in KERNELS}  # noqa: E731
+
+    def reset():
+        for k in KERNELS:
+            k.launches = 0
+
+    t_phase = time.perf_counter()
+    out = a6_wasserstein(torch, np, KERNELS, audio, card, counts, reset,
+                         device)
+    out.update(a6_v1_family(torch, np, KERNELS, audio, card, counts, reset,
+                            device))
+    out.update(a6_spherical(torch, np, KERNELS, audio, card, device))
+    out["v3_native"] = a6_native_v3(torch, np, audio, card, v3, device)
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    emit({"phase": "a6", "card": card, "b1_launches": out,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return out
+
+
+def a6_v3_export(torch, device="cuda"):
+    """The full-width ``v3`` stream with AdaIN states that hold statistics
+    (learning off, so every block transfers), serialized under
+    ``rave_tpu_torch/_build/``, its ``forward`` compiled into an
+    AOTInductor package by a subprocess at the lowest CPU priority
+    (``nice 19``): started before phase 6, the compile (2-3 min, a
+    process's first) overlaps the device-bound train phases and leaves
+    the CPU to them, and phase 14 serves the package.  Returns the
+    stream, the directory, the subprocess and the stream without the
+    statistics."""
+    from rave_tpu_torch.config import build_config
+    from rave_tpu_torch.export.streaming import StreamingRAVE
+    from rave_tpu_torch.models.blocks import AdaIN
+    from rave_tpu_torch.models.rave import RAVE
+    from rave_tpu_torch.ops.kernels.build import BUILD_DIR
+
+    cfg = build_config(["v3"])
+    torch.manual_seed(SEED)
+    state = RAVE(cfg, device=device).state_dict()
+    base = StreamingRAVE(cfg, state, chunk_size=CHUNK, device=device)
+    g = torch.Generator(device=device).manual_seed(SEED + 7)
+    adain = []
+    for s in base.adain:
+        s = s.clone()
+        shape = s[..., 0].shape
+        for slot in (AdaIN.MEAN_X, AdaIN.MEAN_Y):
+            s[..., slot] = 0.1 * torch.randn(shape, generator=g,
+                                             device=device)
+        for slot in (AdaIN.STD_X, AdaIN.STD_Y):
+            s[..., slot] = 0.8 + 0.4 * torch.rand(shape, generator=g,
+                                                  device=device)
+        s[..., AdaIN.N_X] = s[..., AdaIN.N_Y] = 1.0
+        adain.append(s)
+    sr = StreamingRAVE(cfg, state, chunk_size=CHUNK, device=device,
+                       adain_state=adain)
+    exp = BUILD_DIR / "a6_native_v3"
+    sr.serialize(exp)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import json, os, sys; os.nice(19); "
+         "from rave_tpu_torch.export.native import compile_package; "
+         "p, s = compile_package(sys.argv[1], 'forward', sys.argv[2]); "
+         "print(json.dumps([str(p), s]))", str(exp), str(device)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return {"stream": sr, "dir": exp, "compile": proc, "plain": base}
+
+
+def a6_native_v3(torch, np, audio, card, v3, device="cuda"):
+    """(d) of phase 14: the ``v3`` package of :func:`a6_v3_export`, once
+    compiled, served by the C++ host over ``NATIVE_VC_BLOCKS`` blocks of
+    2048: every block and the last caches (the AdaIN states included)
+    against ``StreamingRAVE.forward`` within ``EXPORT_TOL``; p50/p80
+    block time; the transfer changes the output."""
+    from pathlib import Path
+    from rave_tpu_torch.export import native
+
+    sr, exp, proc = v3["stream"], v3["dir"], v3["compile"]
+    t0 = time.perf_counter()
+    try:
+        text = proc.communicate(timeout=NATIVE_TIMEOUT)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wait_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"v3 package compile: {text[-2000:]}")
+    pkg, compile_s = json.loads(text.strip().splitlines()[-1])
+    host = native.build_host(device)
+    n = NATIVE_VC_BLOCKS
+    signal = audio[0, :n * CHUNK].astype(np.float32)
+    res, y, carry, _ = serve_native(torch, np, exp, "forward",
+                                    signal.reshape(n, CHUNK), host, device,
+                                    compiled=(Path(pkg), compile_s))
+    want = sr.process_file(signal).reshape(n, CHUNK)
+    live = np.concatenate([c.reshape(-1).cpu().numpy() for c in sr.caches])
+    res.update(hold_host(np, "v3 forward", y, want, carry, live))
+    plain = v3["plain"].process_file(signal).reshape(n, CHUNK)
+    check(float(np.abs(plain - want).max()) > 1e-3,
+          "v3: the AdaIN transfer changed nothing")
+    res.update(n_adain_states=sr.n_adain, compile_wait_s=wait_s,
+               compiled_in_background=True)
+    emit({"phase": "a6", "step": "native_v3", "card": card, "config": "v3",
+          "chunk": CHUNK, "chunk_ms_of_audio": CHUNK / 44.1, **res})
+    shutil.rmtree(exp)
+    return {k: res[k] for k in ("compile_s", "block_ms_p50", "block_ms_p80",
+                                "max_abs_err_vs_program")}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3218,6 +3785,20 @@ def main() -> int:
     emit({"phase": "profile", "offline_batch": prof_offline,
           "streaming_16_chunks": prof_stream})
 
+    # 14(d)'s v3 package compiles in a niced subprocess from here on
+    v3 = a6_v3_export(torch)
+    try:
+        return _phases(torch, np, KERNELS, smi, kind, model, x, audio,
+                       launches, max_err, shapes, ci1_err, ci1_shapes, v3)
+    finally:
+        if v3["compile"].poll() is None:
+            v3["compile"].kill()
+            v3["compile"].wait()
+
+
+def _phases(torch, np, KERNELS, smi, kind, model, x, audio, launches,
+            max_err, shapes, ci1_err, ci1_shapes, v3) -> int:
+    """Phases 6-14 and the summary (see :func:`main`)."""
     # 6. the v2_fork train step
     g_launches = phase_train(torch, np, KERNELS)
 
@@ -3254,6 +3835,10 @@ def main() -> int:
                  native_convert, smi)
     shutil.rmtree(SMOKE_DIR)
 
+    # 14. v1 / onnx / raspberry, the noise generators, the Wasserstein and
+    # spherical heads; the v3 native package
+    a6 = phase_a6(torch, np, KERNELS, audio, smi, v3)
+
     # 14. summary
     def total(key, path="offline_v2"):
         return sum(s[key] * s["launches_per_call"] for s in shapes
@@ -3286,6 +3871,7 @@ def main() -> int:
         "launches_v3_forward": dv3["v3_forward"]["residual_unit"],
         "launches_v3_train_step": {k: v["residual_unit"] for k, v in
                                    dv3["v3_train_step"].items()},
+        **a6_launches(a6, "residual_unit"),
         **{path: {k: total(k, path) for k in (
             "ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms",
             "bound_ms_f32")}
@@ -3318,6 +3904,7 @@ def main() -> int:
             "launches_v3_forward": dv3["v3_forward"][name],
             "launches_v3_train_step": {k: v[name] for k, v in
                                        dv3["v3_train_step"].items()},
+            **a6_launches(a6, name),
             "library_ms": per("plain_ms")})
     print(smi, flush=True)
     emit({"kernels": kernels})

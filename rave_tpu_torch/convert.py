@@ -1,9 +1,9 @@
 """Load the JAX package's parameters into the port's modules.
 
 ``load_flax_params(model, params, batch_stats, model_state)`` takes the
-``params`` tree of a ``rave_tpu`` RAVE (and, for a speaker encoder with
-BatchNorms, the ``batch_stats`` collection beside it; for the discrete
-head and AdaIN, the ``quantizer`` and ``adain`` collections in
+``params`` tree of a ``rave_tpu`` RAVE (and, for a speaker encoder or an
+EncoderV1 with BatchNorms, the ``batch_stats`` collection beside it; for
+the discrete head and AdaIN, the ``quantizer`` and ``adain`` collections in
 ``model_state``, the dict ``StreamingRAVE(model_state=...)`` takes in the
 JAX package) as nested dicts of numpy arrays (convert with
 ``jax.tree.map(np.asarray, tree)`` on the JAX side) and fills a
@@ -19,6 +19,11 @@ Flax names modules by type in construction order, and binds a
 ``DilatedUnit_i`` holding ``Conv1d_0`` (dilated) and ``Conv1d_1`` (1x1).
 ``Activation_i`` (a Snake ``alpha``; a leaky ReLU owns nothing) and
 ``AdaIN_i`` (state in the ``adain`` collection) are counted the same way.
+The noise generators and the v1 blocks (``UpsampleLayer``,
+``ResidualStack`` > ``ResidualBlock`` > ``ResidualLayer``) have scopes
+of their own, like ``DilatedUnit``; EncoderV1's ``BatchNorm_i`` takes
+``scale``/``bias`` from ``params`` and its running statistics from
+``batch_stats/encoder``.
 The port registers its modules in the same order, so counting them by
 type walks the same names.  A codebook's ``embed`` ``(K, D)`` keeps its
 layout; an AdaIN's statistics ``(B, 1, C)`` and scalars become the packed
@@ -50,13 +55,18 @@ import numpy as np
 import torch
 from torch import nn
 
-from .models.blocks import Activation, AdaIN, DilatedUnit
+from .models.blocks import (Activation, AdaIN, BatchNorm, DilatedUnit,
+                            NoiseGeneratorV1, NoiseGeneratorV2, ResidualBlock,
+                            ResidualLayer, ResidualStack, UpsampleLayer)
 from .models.discriminators import WNConv
 from .models.latent import DiscreteHead
 from .models.speaker import CohortNorm
 from .ops.conv import Conv1d, ConvTranspose1d
 
-_NAMED = (Conv1d, ConvTranspose1d, DilatedUnit, Activation, AdaIN)
+# modules with a flax scope of their own, whose children the loader walks
+_SCOPES = (DilatedUnit, NoiseGeneratorV1, NoiseGeneratorV2, ResidualBlock,
+           ResidualLayer, ResidualStack, UpsampleLayer)
+_NAMED = (Conv1d, ConvTranspose1d, Activation, AdaIN, BatchNorm) + _SCOPES
 
 
 def _flax_children(module: nn.Module, counts=None) -> Iterator:
@@ -138,21 +148,35 @@ class _Loader:
         self.used.update(path + leaf for leaf in tree)
         self.filled.update(id(p) for p in params)
 
-    def named(self, module: nn.Module, tree: Mapping, path: str) -> None:
-        """The convs, dilated units and Snake activations of ``module``,
-        by flax name."""
+    def named(self, module: nn.Module, tree: Mapping, path: str,
+              stats: Optional[Mapping] = None, stats_path: str = "") -> None:
+        """The convs, scoped blocks, Snake activations and BatchNorms of
+        ``module``, by flax name; a BatchNorm's running statistics from
+        ``stats``, the ``batch_stats`` tree at the same place."""
         for name, child in _flax_children(module):
             if isinstance(child, AdaIN) or (
                     isinstance(child, Activation) and child.kind != "snake"):
                 continue
             if name not in tree:
                 raise KeyError(f"{path}{name} missing from the flax params")
-            if isinstance(child, DilatedUnit):
-                self.named(child, tree[name], f"{path}{name}/")
+            sub, sub_path = tree[name], f"{path}{name}/"
+            if isinstance(child, _SCOPES):
+                self.named(child, sub, sub_path,
+                           None if stats is None else stats.get(name),
+                           f"{stats_path}{name}/")
             elif isinstance(child, Activation):
-                self.leaf(child.alpha, tree[name], f"{path}{name}/", "alpha")
+                self.leaf(child.alpha, sub, sub_path, "alpha")
+            elif isinstance(child, BatchNorm):
+                self.leaf(child.weight, sub, sub_path, "scale")
+                self.leaf(child.bias, sub, sub_path, "bias")
+                if stats is None or name not in stats:
+                    raise KeyError(f"{stats_path}{name} missing from the "
+                                   "flax batch_stats")
+                for buf, leaf in ((child.running_mean, "mean"),
+                                  (child.running_var, "var")):
+                    self.leaf(buf, stats[name], f"{stats_path}{name}/", leaf)
             else:
-                self.conv(child, tree[name], f"{path}{name}/")
+                self.conv(child, sub, sub_path)
 
     def check(self, trees: Mapping, tensors) -> None:
         unused = sorted(set(_leaves(trees)) - self.used)
@@ -230,9 +254,12 @@ def load_flax_params(model: nn.Module, params: Mapping,
     """
     ld = _Loader()
     for part in ("encoder", "decoder"):
-        ld.named(getattr(model, part), params[part], f"params/{part}/")
+        ld.named(getattr(model, part), params[part], f"params/{part}/",
+                 (batch_stats or {}).get(part), f"batch_stats/{part}/")
     trees = {"params": params}
     tensors = [("params/" + n, p) for n, p in model.named_parameters()]
+    tensors += [(f"batch_stats/encoder/{n}", b)
+                for n, b in model.encoder.named_buffers()]
     model_state = dict(model_state or {})
     if "quantizer" in model_state and isinstance(model.latent, DiscreteHead):
         tree = model_state.pop("quantizer")

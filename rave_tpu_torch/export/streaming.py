@@ -1,5 +1,4 @@
-"""Chunked streaming inference and export for the v2 codec, ``v2_fork``,
-``discrete`` and ``v3``.
+"""Chunked streaming inference and export of every ported preset.
 
 Port of ``rave_tpu/export/streaming.py``.  The model is rebuilt in
 streaming mode and the offline parameters are loaded unchanged; each conv
@@ -20,7 +19,13 @@ statistics and its ``learn_x``/``learn_y`` flags are carried after the
 caches (:class:`~rave_tpu_torch.models.blocks.AdaIN`), so the exported
 steps and the CUDA-graph replay read the flags the host sets between
 chunks (``set_learn_source`` / ``set_learn_target`` / ``reset_source`` /
-``reset_target``).
+``reset_target``).  The random draws of a chunk (the noise branch's
+uniform noise, the normal augmentation channels that ``decode`` inserts
+into a latent without them, the discrete head's in ``encode``) are drawn
+once per stream from ``seed`` and kept beside the caches
+(:class:`~rave_tpu_torch.ops.conv.StreamDraw`), so that every chunk,
+the CUDA graph and the exported programs reuse the same ones, as the
+JAX package's stream does with its fixed keys; ``reset`` restores them.
 
 Options: fake stereo (one encode, the decoder run on the batch-duplicated
 latent with its own caches, the two decodes as the two channels) and a
@@ -38,10 +43,12 @@ import numpy as np
 import torch
 
 from ..config import DiscriminatorConfig, RAVEConfig
-from ..ops.conv import StreamStep, stream_caches
+from ..ops.conv import StreamDraw, StreamStep, stream_caches
 from ..ops.pqmf import _pqmf_kernels
 from ..ops.resampler import Resampler
 from ..models.blocks import AdaIN
+from ..models.latent import (angles_to_unit_norm_vector,
+                             unit_norm_vector_to_angles)
 from ..models.rave import RAVE, band_frame_delay, stream_setup
 
 
@@ -60,7 +67,8 @@ class StreamingRAVE:
     def __init__(self, cfg: RAVEConfig, params: Mapping[str, torch.Tensor],
                  chunk_size: int = 2048, batch_size: int = 1,
                  stereo: bool = False, target_sr: Optional[int] = None,
-                 device="cuda", adain_state: Optional[list] = None):
+                 device="cuda", adain_state: Optional[list] = None,
+                 seed: Optional[int] = 0):
         if chunk_size % cfg.total_ratio():
             raise ValueError(
                 f"chunk_size must be a multiple of the total stride "
@@ -81,8 +89,11 @@ class StreamingRAVE:
         dev = self.device
         x0 = torch.zeros(batch_size, chunk_size, 1, device=dev)
         z0 = torch.zeros(batch_size, chunk_size // cfg.total_ratio(),
-                         cfg.decoder_latent_size(), device=dev)
+                         m.encoded_size(), device=dev)
+        gen = (torch.Generator(device=dev).manual_seed(seed)
+               if seed is not None else None)
         self.cache_modules, self.init_caches = stream_caches(m, m.forward, x0)
+        _draw(self.cache_modules, self.init_caches, gen)
         self.n_adain = sum(isinstance(c, AdaIN) for c in self.cache_modules)
         if adain_state is not None:
             if len(adain_state) != self.n_adain:
@@ -107,6 +118,7 @@ class StreamingRAVE:
             # the stereo decoder keeps its own caches, at batch 2B
             mods, self.init_dec_caches = stream_caches(
                 m, m.decode, torch.cat([z0, z0]))
+            _draw(mods, self.init_dec_caches, gen)
             self._decode_stereo = StreamStep(m, m.decode, mods)
 
         self.rs_ratio = 1
@@ -342,30 +354,33 @@ class StreamingRAVE:
         self._n_keep = (n_dims_for_fidelity(stats["fidelity"], fidelity)
                         if stats is not None else None)
 
-    def _spherical(self):
-        if self.cfg.latent_head == "spherical":
-            raise NotImplementedError(
-                "the spherical latent head is not ported to rave_tpu_torch "
-                "yet (ROADMAP A6)")
-
     def postprocess_latent(self, z: np.ndarray) -> np.ndarray:
         """Latent ``(..., C)`` (numpy) -> the compact user-facing one: its
-        first principal components when stats are set."""
-        self._spherical()
-        if self.cfg.latent_head == "variational" and self._stats is not None:
+        first principal components when stats are set; for the spherical
+        head its ``C - 1`` angles in [-1, 1]."""
+        head = self.cfg.latent_head
+        if head == "variational" and self._stats is not None:
             pca, mean = self._stats["latent_pca"], self._stats["latent_mean"]
             return (z - mean) @ pca.T[:, :self._n_keep]
+        if head == "spherical":
+            return unit_norm_vector_to_angles(
+                torch.from_numpy(np.asarray(z, np.float32))).numpy()
         return z
 
     def preprocess_latent(self, z: np.ndarray) -> np.ndarray:
         """Inverse of :meth:`postprocess_latent` (the decode side): the
-        dropped components come back as zeros."""
-        self._spherical()
-        if self.cfg.latent_head == "variational" and self._stats is not None:
+        dropped components come back as zeros, angles as unit vectors.
+        (The augmentation channels of a latent without them are
+        re-sampled by ``decode`` itself.)"""
+        head = self.cfg.latent_head
+        if head == "variational" and self._stats is not None:
             pca, mean = self._stats["latent_pca"], self._stats["latent_mean"]
             full = np.zeros((*z.shape[:-1], pca.shape[0]), z.dtype)
             full[..., :z.shape[-1]] = z
             return full @ pca + mean
+        if head == "spherical":
+            return angles_to_unit_norm_vector(
+                torch.from_numpy(np.asarray(z, np.float32))).numpy()
         return z
 
     # -- export -------------------------------------------------------------
@@ -411,6 +426,17 @@ class StreamingRAVE:
                     config=cfg.name)
         (out / "meta.json").write_text(json.dumps(meta, indent=2))
         return out
+
+
+def _draw(mods: list, caches: list, generator) -> None:
+    """Each :class:`StreamDraw`'s initial state in ``caches`` drawn from
+    ``generator`` (zeros without one), in module order."""
+    if generator is None:
+        return
+    for i, m in enumerate(mods):
+        if isinstance(m, StreamDraw):
+            caches[i] = m.sample(caches[i].shape, generator,
+                                 caches[i].device)
 
 
 def export_step(step: StreamStep, args: tuple, path: Path) -> None:

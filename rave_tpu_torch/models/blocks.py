@@ -1,25 +1,32 @@
-"""v2 building blocks: activations (leaky ReLU, Snake), AdaIN, dilated
-residual units, EncoderV2, GeneratorV2.
+"""Building blocks: activations (leaky ReLU, Snake), AdaIN, BatchNorm,
+dilated residual units, EncoderV2, GeneratorV2 (with its filtered-noise
+branch), and the v1 family: residual layers, blocks and stacks, the
+upsampler, EncoderV1, NoiseGeneratorV1, GeneratorV1.
 
-Port of the v2 part of ``rave_tpu/models/blocks.py``.  Layout is
+Port of ``rave_tpu/models/blocks.py`` (all but the mel front end and the
+GRU layer, ROADMAP A7).  Layout is
 channels-first ``(B, C, T)``.  Every block threads the static delay
 algebra of :mod:`rave_tpu_torch.ops.delay`; streaming state lives in the
 :class:`~rave_tpu_torch.ops.conv.Cached` modules (AdaIN's statistics and
-controls too).  Modules are registered in the order the JAX package
+controls too, and the noise generators' uniform draw, fixed over a
+stream).  Modules are registered in the order the JAX package
 creates them, which :mod:`rave_tpu_torch.convert` relies on.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import dataclasses
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.conv import Cached, Conv1d, ConvTranspose1d, Delay, StreamSetup
+from ..ops.conv import (Cached, Conv1d, ConvTranspose1d, Delay, StreamDraw,
+                        StreamSetup)
 from ..ops.delay import get_padding, plan_conv, plan_conv_transpose
 from ..ops.kernels.residual_unit import residual_unit
+from ..ops.losses import amp_to_impulse_response, fft_convolve, mod_sigmoid
 
 
 def normalize_dilations(dilations, ratios):
@@ -31,6 +38,25 @@ def normalize_dilations(dilations, ratios):
 def conv_delay(kernel_size: int, stride: int = 1, dilation: int = 1,
                mode: str = "centered", in_delay: int = 0) -> int:
     return plan_conv(kernel_size, stride, dilation, mode, in_delay).out_delay
+
+
+def upsample_delay(ratio: int, mode: str, in_delay: int = 0) -> int:
+    if ratio > 1:
+        return plan_conv_transpose(2 * ratio, ratio, ratio // 2,
+                                   in_delay).out_delay
+    return conv_delay(3, 1, 1, mode, in_delay)
+
+
+def residual_layer_delay(kernel_size: int, dilations, mode: str) -> int:
+    d = 0
+    for dil in dilations:
+        d = conv_delay(kernel_size, 1, dil, mode, d)
+    return d
+
+
+def residual_block_delay(kernel_size: int, dilations_list, mode: str) -> int:
+    return sum(residual_layer_delay(kernel_size, dl, mode)
+               for dl in dilations_list)
 
 
 class Activation(nn.Module):
@@ -134,6 +160,43 @@ class AdaIN(Cached):
         return torch.where(use, transfer, x)
 
 
+class BatchNorm(nn.Module):
+    """flax's ``BatchNorm`` over the channel axis 1 (eps 1e-5, momentum
+    0.99).  With ``train_bn`` false it normalises by the stored
+    statistics (``use_running_average=True``).  With ``train_bn`` it
+    normalises by the batch's mean and biased variance, taken as
+    ``max(E[x^2] - E[x]^2, 0)`` (flax's ``use_fast_variance``), and moves
+    the stored ones to ``0.99 * r + 0.01 * batch``; the update happens
+    under ``no_grad`` too, as a flax D step's does.  ``F.batch_norm``'s
+    training mode differs (unbiased variance in the update, momentum 0.1).
+    ``train()`` and ``eval()`` change nothing: ``train_bn`` decides."""
+
+    def __init__(self, channels: int, eps: float = 1e-5,
+                 momentum: float = 0.99):
+        super().__init__()
+        self.eps, self.momentum = eps, momentum
+        self.train_bn = False
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.train_bn:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        axes = (0,) + tuple(range(2, x.dim()))
+        mu = x.mean(dim=axes)
+        var = torch.clamp((x * x).mean(dim=axes) - mu * mu, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(m).add_(mu.detach(), alpha=1 - m)
+            self.running_var.mul_(m).add_(var.detach(), alpha=1 - m)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mu.view(shape)) * mul.view(shape) + self.bias.view(shape)
+
+
 class DilatedUnit(nn.Module):
     """act -> dilated conv(k) -> act -> 1x1 conv.  Stride 1; own delay =
     the dilated conv's right pad."""
@@ -188,6 +251,80 @@ class Residual(nn.Module):
                                  du.conv2.kernel()[:, :, 0], du.conv2.bias,
                                  du.dilation, pl, pr)
         return du(x) + self.skip(x)
+
+
+class _NoiseGenerator(nn.Module):
+    """Filtered noise: strided causal convs (kernel ``2r``, whatever the
+    model's mode, so that the branch streams exactly) -> band amplitudes
+    ``mod_sigmoid(x - 5)`` -> a windowed impulse response per frame and
+    band -> uniform noise in [-1, 1) convolved with it by FFT.
+
+    The noise ``(B, T', data_size, prod(ratios))`` (``T'`` the frames
+    after the convs) is an argument, or drawn from ``generator``; in a
+    stream it is the :class:`~rave_tpu_torch.ops.conv.StreamDraw`'s
+    fixed draw.  Output ``(B, data_size, T' * prod(ratios))``.
+    """
+
+    def __init__(self, channels: Sequence[int], data_size: int,
+                 ratios: Sequence[int], noise_bands: int, activation: str,
+                 ss: StreamSetup):
+        super().__init__()
+        self.data_size, self.noise_bands = data_size, noise_bands
+        self.ratios = list(ratios)
+        causal = dataclasses.replace(ss, mode="causal")
+        layers = []
+        for i, r in enumerate(self.ratios):
+            layers.append(Conv1d(channels[i], channels[i + 1], 2 * r,
+                                 stride=r, ss=causal))
+            if i != len(self.ratios) - 1:
+                layers.append(Activation(activation, channels[i + 1]))
+        self.net = nn.Sequential(*layers)
+        self.draw = StreamDraw("uniform", ss)
+
+    @property
+    def total_ratio(self) -> int:
+        t = 1
+        for r in self.ratios:
+            t *= r
+        return t
+
+    def forward(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        amp = mod_sigmoid(self.net(x) - 5.0)
+        B, _, Tp = amp.shape
+        amp = amp.transpose(1, 2).reshape(B, Tp, self.data_size,
+                                           self.noise_bands)
+        ir = amp_to_impulse_response(amp, self.total_ratio)
+        out = fft_convolve(self.draw(ir.shape, ir, noise, generator), ir)
+        return out.transpose(1, 2).reshape(B, self.data_size,
+                                           Tp * self.total_ratio)
+
+
+class NoiseGeneratorV2(_NoiseGenerator):
+    """GeneratorV2's noise branch: ``in_size`` -> ``hidden_size`` per
+    hidden conv -> ``data_size * noise_bands``, the model's activation
+    between the convs."""
+
+    def __init__(self, in_size: int, hidden_size: int, data_size: int,
+                 ratios: Sequence[int], noise_bands: int,
+                 activation: str = "leaky_relu",
+                 ss: StreamSetup = StreamSetup()):
+        channels = ([in_size] + [hidden_size] * (len(ratios) - 1)
+                    + [data_size * noise_bands])
+        super().__init__(channels, data_size, ratios, noise_bands,
+                         activation, ss)
+
+
+class NoiseGeneratorV1(_NoiseGenerator):
+    """GeneratorV1's noise branch: ``in_size`` channels through every
+    hidden conv, leaky ReLU between them; ratios (4, 4, 4), 5 bands."""
+
+    def __init__(self, in_size: int, data_size: int,
+                 ratios: Sequence[int] = (4, 4, 4), noise_bands: int = 5,
+                 ss: StreamSetup = StreamSetup()):
+        channels = [in_size] * len(ratios) + [data_size * noise_bands]
+        super().__init__(channels, data_size, ratios, noise_bands,
+                         "leaky_relu", ss)
 
 
 class EncoderV2(nn.Module):
@@ -269,11 +406,16 @@ class EncoderV2(nn.Module):
 
 class GeneratorV2(nn.Module):
     """Mirror decoder: conv, transposed-conv upsamplers with residual
-    units, amplitude modulation, tanh."""
+    units, amplitude modulation, with ``use_noise`` the filtered noise
+    of :class:`NoiseGeneratorV2` (fed the last activation, added after
+    the modulation), tanh."""
 
     def __init__(self, data_size: int, capacity: int, ratios: Sequence[int],
                  latent_size: int, kernel_size: int, dilations: Sequence,
                  keep_dim: bool = False, amplitude_modulation: bool = False,
+                 use_noise: bool = False, noise_hidden: int = 128,
+                 noise_ratios: Sequence[int] = (2, 2, 2),
+                 noise_bands: int = 5,
                  activation: str = "leaky_relu", weight_norm: bool = True,
                  adain: bool = False, fused: bool = False,
                  ss: StreamSetup = StreamSetup()):
@@ -309,6 +451,9 @@ class GeneratorV2(nn.Module):
             Conv1d(num_channels, wave_features, kernel_size * 2 + 1,
                    weight_norm=weight_norm, ss=ss)))
         self.layers = nn.ModuleList(layers)
+        self.noise = (NoiseGeneratorV2(num_channels, noise_hidden, data_size,
+                                       noise_ratios, noise_bands, activation,
+                                       ss) if use_noise else None)
 
     def _plan(self):
         dilations_list = normalize_dilations(self.dilations, self.ratios)[::-1]
@@ -332,10 +477,207 @@ class GeneratorV2(nn.Module):
                 d += conv_delay(self.kernel_size, 1, dil, mode)
         return conv_delay(self.kernel_size * 2 + 1, 1, 1, mode, d)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for layer in self.layers:
+    def forward(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``noise``/``generator``: the noise branch's draw (see
+        :class:`NoiseGeneratorV2`), unused without ``use_noise``."""
+        for layer in self.layers[:-1]:
             x = layer(x)
+        act, conv = self.layers[-1]
+        x = act(x)
+        wave = conv(x)
         if self.amplitude_modulation:
-            wav, amp = x.chunk(2, dim=1)
-            x = wav * torch.sigmoid(amp)
-        return torch.tanh(x)
+            wav, amp = wave.chunk(2, dim=1)
+            wave = wav * torch.sigmoid(amp)
+        if self.noise is not None:
+            wave = wave + self.noise(x, noise, generator)
+        return torch.tanh(wave)
+
+
+# ------------------------- v1 blocks ------------------------------------
+
+
+class SampleNorm(nn.Module):
+    """Each frame divided by its L2 norm over the channels."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
+
+
+class ResidualLayer(nn.Module):
+    """(act, dilated conv) pairs plus the input, delayed by the chain's
+    streaming delay."""
+
+    def __init__(self, dim: int, kernel_size: int, dilations: Sequence[int],
+                 activation: str = "leaky_relu", weight_norm: bool = True,
+                 ss: StreamSetup = StreamSetup()):
+        super().__init__()
+        layers = []
+        for dil in dilations:
+            layers += [Activation(activation, dim),
+                       Conv1d(dim, dim, kernel_size, dilation=dil,
+                              weight_norm=weight_norm, ss=ss)]
+        self.net = nn.Sequential(*layers)
+        self.skip = Delay(residual_layer_delay(kernel_size, dilations,
+                                               ss.mode), ss)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.net(x) + self.skip(x)
+
+
+class ResidualBlock(nn.Sequential):
+    """ResidualLayers in sequence, one per dilation list."""
+
+    def __init__(self, dim: int, kernel_size: int, dilations_list,
+                 activation: str = "leaky_relu", weight_norm: bool = True,
+                 ss: StreamSetup = StreamSetup()):
+        super().__init__(*(ResidualLayer(dim, kernel_size, dil, activation,
+                                         weight_norm, ss)
+                           for dil in dilations_list))
+
+
+class ResidualStack(nn.Module):
+    """One ResidualBlock per kernel size in parallel, each delayed to the
+    slowest branch, summed."""
+
+    def __init__(self, dim: int, kernel_sizes: Sequence[int], dilations_list,
+                 activation: str = "leaky_relu", weight_norm: bool = True,
+                 ss: StreamSetup = StreamSetup()):
+        super().__init__()
+        delays = [residual_block_delay(k, dilations_list, ss.mode)
+                  for k in kernel_sizes]
+        self.out_delay = max(delays)
+        self.blocks = nn.ModuleList(
+            ResidualBlock(dim, k, dilations_list, activation, weight_norm, ss)
+            for k in kernel_sizes)
+        self.align = nn.ModuleList(Delay(self.out_delay - d, ss)
+                                   for d in delays)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = None
+        for block, align in zip(self.blocks, self.align):
+            y = align(block(x))
+            out = y if out is None else out + y
+        return out
+
+
+class UpsampleLayer(nn.Module):
+    """act + transposed conv (kernel ``2r``, stride ``r``, no bias), or a
+    kernel-3 conv at ratio 1."""
+
+    def __init__(self, in_dim: int, out_dim: int, ratio: int,
+                 activation: str = "leaky_relu", weight_norm: bool = True,
+                 in_delay: int = 0, ss: StreamSetup = StreamSetup()):
+        super().__init__()
+        self.act = Activation(activation, in_dim)
+        if ratio > 1:
+            self.conv = ConvTranspose1d(in_dim, out_dim, 2 * ratio, ratio,
+                                        weight_norm=weight_norm,
+                                        in_delay=in_delay, ss=ss)
+        else:
+            self.conv = Conv1d(in_dim, out_dim, 3, weight_norm=weight_norm,
+                               in_delay=in_delay, ss=ss)
+        self.out_delay = self.conv.out_delay
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(self.act(x))
+
+
+class EncoderV1(nn.Module):
+    """Strided-conv encoder: a kernel-7 conv, then per ratio ``r`` (norm,
+    act, conv of kernel ``2r + 1`` and stride ``r`` doubling the
+    channels) and ``repeat_layers - 1`` more (norm, act, kernel-3 conv);
+    act and a kernel-5 conv in ``n_out`` groups.  The norm is
+    :class:`SampleNorm`, or :class:`BatchNorm` at flax's momentum 0.9
+    (eps 1e-5): batch statistics, its running ones advanced, while its
+    ``train_bn`` holds (the model's ``train_mode``), else the running
+    ones, a per-channel affine that streams chunk by chunk."""
+
+    def __init__(self, data_size: int, capacity: int, latent_size: int,
+                 ratios: Sequence[int], n_out: int, sample_norm: bool = False,
+                 repeat_layers: int = 1, activation: str = "leaky_relu",
+                 weight_norm: bool = False, ss: StreamSetup = StreamSetup()):
+        super().__init__()
+
+        def norm(ch):
+            return SampleNorm() if sample_norm else BatchNorm(ch, momentum=0.9)
+
+        conv = Conv1d(data_size, capacity, 7, weight_norm=weight_norm, ss=ss)
+        layers, ch = [conv], capacity
+        for i, r in enumerate(ratios):
+            out_dim = 2 ** (i + 1) * capacity
+            for j in range(repeat_layers):
+                conv = Conv1d(ch, out_dim, 2 * r + 1 if j == 0 else 3,
+                              stride=r if j == 0 else 1,
+                              in_delay=conv.out_delay,
+                              weight_norm=weight_norm, ss=ss)
+                layers += [norm(ch), Activation(activation, ch), conv]
+                ch = out_dim
+        conv = Conv1d(ch, latent_size * n_out, 5, groups=n_out,
+                      in_delay=conv.out_delay, weight_norm=weight_norm, ss=ss)
+        layers += [Activation(activation, ch), conv]
+        self.out_delay = conv.out_delay
+        self.net = nn.Sequential(*layers)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.net(x)
+
+
+class GeneratorV1(nn.Module):
+    """v1 decoder: a kernel-7 conv, per ratio an upsampler and a residual
+    stack, then three branches: ``tanh(wave) * mod_sigmoid(loudness)``,
+    the two delay-aligned (the loudness conv has stride ``loud_stride``,
+    repeated back to the band rate), plus with ``use_noise`` the
+    :class:`NoiseGeneratorV1` noise times ``warmed_up``."""
+
+    def __init__(self, latent_size: int, capacity: int, data_size: int,
+                 ratios: Sequence[int], loud_stride: int = 1,
+                 use_noise: bool = True, kernel_sizes: Sequence[int] = (3,),
+                 dilations_list=((1, 1), (3, 1), (5, 1)),
+                 activation: str = "leaky_relu", weight_norm: bool = True,
+                 ss: StreamSetup = StreamSetup()):
+        super().__init__()
+        n = len(ratios)
+        self.loud_stride = loud_stride
+        self.conv_in = Conv1d(latent_size, 2 ** n * capacity, 7,
+                              weight_norm=weight_norm, ss=ss)
+        d = self.conv_in.out_delay
+        body = []
+        for i, r in enumerate(ratios):
+            out_dim = 2 ** (n - i - 1) * capacity
+            up = UpsampleLayer(2 ** (n - i) * capacity, out_dim, r,
+                               activation, weight_norm, d, ss)
+            stack = ResidualStack(out_dim, kernel_sizes, dilations_list,
+                                  activation, weight_norm, ss)
+            d = up.out_delay + stack.out_delay
+            body += [up, stack]
+        self.body = nn.Sequential(*body)
+        self.wave_conv = Conv1d(out_dim, data_size, 7,
+                                weight_norm=weight_norm, in_delay=d, ss=ss)
+        self.loud_conv = Conv1d(out_dim, 1, 2 * loud_stride + 1,
+                                stride=loud_stride, weight_norm=weight_norm,
+                                in_delay=d, ss=ss)
+        wave_d = self.wave_conv.out_delay
+        loud_d = self.loud_conv.out_delay * loud_stride
+        self.out_delay = max(wave_d, loud_d)
+        self.wave_align = Delay(self.out_delay - wave_d, ss)
+        self.loud_align = Delay(self.out_delay - loud_d, ss)
+        self.noise = (NoiseGeneratorV1(out_dim, data_size, ss=ss)
+                      if use_noise else None)
+
+    def forward(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                warmed_up=True) -> torch.Tensor:
+        """``noise``/``generator``: the noise branch's draw (see
+        :class:`NoiseGeneratorV1`), unused without ``use_noise``."""
+        x = self.body(self.conv_in(x))
+        wave = self.wave_conv(x)
+        loud = self.loud_conv(x)
+        if self.loud_stride != 1:
+            loud = loud.repeat_interleave(self.loud_stride, dim=2)
+        y = (torch.tanh(self.wave_align(wave))
+             * mod_sigmoid(self.loud_align(loud)))
+        if self.noise is not None:
+            gate = torch.as_tensor(warmed_up, dtype=y.dtype, device=y.device)
+            y = y + gate * self.noise(x, noise, generator)
+        return y

@@ -1,28 +1,39 @@
-"""RAVE v2 codec: PQMF + EncoderV2 + latent head + GeneratorV2, and the
-voice-conversion fork's speaker-conditioned variant.
+"""RAVE: PQMF + encoder + latent head + generator, and the voice-conversion
+fork's speaker-conditioned variant.
 
-Port of ``rave_tpu/models/rave.py`` for the v2, ``v2_fork``, ``discrete``,
-``v3`` and ``discrete_v3`` presets (Snake and AdaIN are options of the
-blocks): ``encode`` takes the variational mean (deterministic), the
-residual-VQ quantized latent of the discrete head or, speaker-
-conditioned, the raw content latent with the frozen speaker embedding
-appended; ``encode_indices`` / ``decode_indices`` are the discrete head's
-integer codes ``(B, n_quantizers, T_z)``; ``decode`` runs the generator
-and PQMF synthesis; ``forward`` is ``decode(encode(x))``; ``convert``
-conditions a source's content on a target's speaker embedding.  The same
-module serves offline
-(``streaming=False``) and chunked streaming (``streaming=True``, caches
-carried in the conv modules; the speaker encoder always runs offline).
-With ``train_speaker_encoder`` the speaker encoder trains with the rest
-(its embedding keeps its gradient; a BatchNorm encoder takes batch
-statistics while ``train_mode`` holds), beside the AAM head and the
-latent adversary (``train/loop.py``).  With ``pitch_embedding_size``
-(the ``pitch`` preset) the decoder latent also carries the normalised f0
-of the input audio (:func:`~rave_tpu_torch.ops.pitch.pitch_feature`,
-per-utterance statistics): in ``encode`` and ``convert`` (the source's
-f0, the target's timbre).
+Port of ``rave_tpu/models/rave.py`` for every preset but ``hybrid``:
+``v1`` / ``onnx`` / ``raspberry`` (EncoderV1, GeneratorV1 and its noise
+branch), the v2 family (``v2``, ``v2_fork``, ``discrete``, ``v3``,
+``discrete_v3``; the ``noise`` toggle adds GeneratorV2's noise branch)
+and the ``wasserstein`` and ``spherical`` heads.  ``encode`` takes the
+variational mean (deterministic), the raw latent of the Wasserstein
+head, the normalised latent of the spherical head, the residual-VQ
+quantized latent of the discrete head (its noise-augmentation channels
+appended) or, speaker-conditioned, the raw content latent with the
+frozen speaker embedding appended; ``encode_indices`` /
+``decode_indices`` are the discrete head's integer codes ``(B,
+n_quantizers, T_z)``; ``decode`` re-samples the noise-augmentation
+channels of a latent that arrives without them (between the latent and
+any trailing speaker or pitch channels), then runs the generator and
+PQMF synthesis; ``forward`` is ``decode(encode(x))``; ``convert``
+conditions a source's content on a target's speaker embedding.  Every
+random draw (the augmentation channels ``aug``, the noise branch's
+``noise``) is an argument or comes from a ``generator``; a streaming
+model keeps each as a fixed draw in its caches
+(:class:`~rave_tpu_torch.ops.conv.StreamDraw`).  The same module serves
+offline (``streaming=False``) and chunked streaming (``streaming=True``,
+caches carried in the conv modules; the speaker encoder always runs
+offline).  With ``train_speaker_encoder`` the speaker encoder trains
+with the rest (its embedding keeps its gradient; a BatchNorm encoder
+takes batch statistics while ``train_mode`` holds), beside the AAM head
+and the latent adversary (``train/loop.py``); so does EncoderV1's
+BatchNorm.  With ``pitch_embedding_size`` (the ``pitch`` preset) the
+decoder latent also carries the normalised f0 of the input audio
+(:func:`~rave_tpu_torch.ops.pitch.pitch_feature`, per-utterance
+statistics): in ``encode`` and ``convert`` (the source's f0, the
+target's timbre).
 
-Options outside this slice raise ``NotImplementedError`` naming the
+Options outside the port raise ``NotImplementedError`` naming the
 ROADMAP item that ports them.
 """
 
@@ -36,26 +47,25 @@ from torch import nn
 
 from .. import resolve_device
 from ..config import RAVEConfig
-from ..ops.conv import StreamSetup
+from ..ops.conv import StreamDraw, StreamSetup
 from ..ops.pitch import pitch_feature
 from ..ops.pqmf import PQMF, _pqmf_kernels
-from .blocks import AdaIN, EncoderV2, GeneratorV2
-from .latent import DiscreteHead, VariationalHead
+from .blocks import (AdaIN, BatchNorm, EncoderV1, EncoderV2, GeneratorV1,
+                     GeneratorV2)
+from .latent import (DiscreteHead, SphericalHead, VariationalHead,
+                     WassersteinHead)
 from .quantization import Sampler, sample_vectors
 from .speaker import AAMSpeakerHead, SpeakerRAVE
+
+
+HEADS = ("variational", "wasserstein", "spherical", "discrete")
 
 
 def check_supported(cfg: RAVEConfig) -> None:
     """Raise ``NotImplementedError`` for options this slice lacks."""
     unsupported = [
-        (cfg.encoder_version != "v2" or cfg.generator_version != "v2",
-         "v1 encoder/generator blocks", "A6"),
-        (cfg.use_noise, "the noise generator", "A6"),
         (cfg.use_mel_encoder or cfg.encoder_gru_layers
          or cfg.decoder_gru_layers, "the mel front end and GRU layers", "A7"),
-        (cfg.latent_head in ("wasserstein", "spherical"),
-         f"the {cfg.latent_head} latent head", "A6"),
-        (cfg.noise_augmentation, "noise augmentation of the latent", "A6"),
         (cfg.compute_dtype != "float32",
          f"compute_dtype {cfg.compute_dtype!r}", "A10"),
     ]
@@ -63,8 +73,11 @@ def check_supported(cfg: RAVEConfig) -> None:
         if bad:
             raise NotImplementedError(
                 f"{what} is not ported to rave_tpu_torch yet (ROADMAP {item})")
-    if cfg.latent_head not in ("variational", "discrete"):
+    if cfg.latent_head not in HEADS:
         raise ValueError(f"unknown latent head {cfg.latent_head!r}")
+    for part in ("encoder_version", "generator_version"):
+        if getattr(cfg, part) not in ("v1", "v2"):
+            raise ValueError(f"unknown {part} {getattr(cfg, part)!r}")
     speaker_norm(cfg)
 
 
@@ -82,7 +95,7 @@ def speaker_norm(cfg: RAVEConfig) -> str:
 
 def encoder_n_out(cfg: RAVEConfig) -> int:
     """Latent channels per latent dim: 2 (mean, scale) for the variational
-    head, 1 for the discrete head or when speaker-conditioned (the fork
+    head, 1 for the other heads or when speaker-conditioned (the fork
     feeds the raw latent to the decoder and trains the encoder by unit CE
     only)."""
     return (VariationalHead.num_out() if cfg.latent_head == "variational"
@@ -98,7 +111,16 @@ def pqmf_in_delay(cfg: RAVEConfig) -> int:
     return 0
 
 
-def make_encoder(cfg: RAVEConfig, ss: StreamSetup) -> EncoderV2:
+def make_encoder(cfg: RAVEConfig, ss: StreamSetup) -> nn.Module:
+    """EncoderV2, or EncoderV1 (``v1`` presets: leaky ReLU, no weight
+    norm, whatever the config says of them, as in the JAX package)."""
+    if cfg.encoder_version == "v1":
+        return EncoderV1(
+            data_size=cfg.effective_encoder_data_size(),
+            capacity=cfg.capacity, latent_size=cfg.latent_size,
+            ratios=cfg.ratios, n_out=encoder_n_out(cfg),
+            sample_norm=cfg.v1_sample_norm,
+            repeat_layers=cfg.v1_repeat_layers, ss=ss)
     return EncoderV2(
         data_size=cfg.effective_encoder_data_size(), capacity=cfg.capacity,
         ratios=cfg.encoder_ratios or cfg.ratios,
@@ -110,12 +132,25 @@ def make_encoder(cfg: RAVEConfig, ss: StreamSetup) -> EncoderV2:
         fused=cfg.fused_kernels, in_delay=pqmf_in_delay(cfg), ss=ss)
 
 
-def make_decoder(cfg: RAVEConfig, ss: StreamSetup) -> GeneratorV2:
+def make_decoder(cfg: RAVEConfig, ss: StreamSetup) -> nn.Module:
+    """GeneratorV2 (with its noise branch under ``use_noise``), or
+    GeneratorV1 (``v1`` presets, its noise branch under
+    ``v1_use_noise``)."""
+    if cfg.generator_version == "v1":
+        return GeneratorV1(
+            latent_size=cfg.decoder_latent_size(), capacity=cfg.capacity,
+            data_size=cfg.n_band, ratios=cfg.ratios,
+            loud_stride=cfg.v1_loud_stride, use_noise=cfg.v1_use_noise,
+            kernel_sizes=cfg.v1_kernel_sizes,
+            dilations_list=cfg.v1_dilations_list,
+            activation=cfg.activation, weight_norm=cfg.weight_norm, ss=ss)
     return GeneratorV2(
         data_size=cfg.n_band, capacity=cfg.capacity, ratios=cfg.ratios,
         latent_size=cfg.decoder_latent_size(), kernel_size=cfg.kernel_size,
         dilations=cfg.dilations, keep_dim=cfg.keep_dim,
         amplitude_modulation=cfg.amplitude_modulation,
+        use_noise=cfg.use_noise, noise_ratios=cfg.noise_ratios,
+        noise_bands=cfg.noise_bands,
         activation=cfg.activation, weight_norm=cfg.weight_norm,
         adain=cfg.adain, fused=cfg.fused_kernels, ss=ss)
 
@@ -130,11 +165,22 @@ def band_frame_delay(cfg: RAVEConfig, ss: StreamSetup) -> int:
     return _compose_delay(cfg, enc, dec)
 
 
-def _compose_delay(cfg: RAVEConfig, enc: EncoderV2, dec: GeneratorV2) -> int:
+def _compose_delay(cfg: RAVEConfig, enc: nn.Module, dec: nn.Module) -> int:
     dec_ratio_total = 1
     for r in cfg.ratios:
         dec_ratio_total *= r
     return enc.out_delay * dec_ratio_total + dec.out_delay
+
+
+def make_head(cfg: RAVEConfig) -> nn.Module:
+    if cfg.latent_head == "discrete":
+        return DiscreteHead(cfg.num_quantizers, cfg.latent_size,
+                            cfg.codebook_size, cfg.noise_augmentation)
+    if cfg.latent_head == "wasserstein":
+        return WassersteinHead(cfg.noise_augmentation)
+    if cfg.latent_head == "spherical":
+        return SphericalHead()
+    return VariationalHead()
 
 
 def stream_setup(cfg: RAVEConfig, streaming: bool) -> StreamSetup:
@@ -181,7 +227,7 @@ class CrossEntropyProjection(nn.Module):
 
 
 class RAVE(nn.Module):
-    """The v2 codec.  Audio ``(B, T, 1)`` <-> latent ``(B, T_z, latent)``.
+    """The codec.  Audio ``(B, T, 1)`` <-> latent ``(B, T_z, latent)``.
 
     Speaker-conditioned configs (``v2_fork``) add the speaker encoder,
     whose 256-dim embedding is appended to the latent (frozen unless
@@ -203,9 +249,10 @@ class RAVE(nn.Module):
         self.streaming = streaming
         ss = stream_setup(cfg, streaming)
         self.encoder = make_encoder(cfg, ss)
-        self.latent = (DiscreteHead(cfg.num_quantizers, cfg.latent_size,
-                                    cfg.codebook_size)
-                       if cfg.latent_head == "discrete" else VariationalHead())
+        self.latent = make_head(cfg)
+        # the augmentation channels of a latent that goes without them
+        self.latent_noise = (StreamDraw("normal", ss)
+                             if cfg.noise_augmentation else None)
         self.decoder = make_decoder(cfg, ss)
         # composite streaming delay at the band rate; an odd lag flips
         # the synthesis-side reverse_half mask
@@ -243,13 +290,16 @@ class RAVE(nn.Module):
 
     def set_train_mode(self, on: bool) -> None:
         """The JAX module's ``train_mode``: AdaIN is the identity while it
-        holds; a BatchNorm speaker encoder trained from scratch normalises
-        by batch statistics (and advances its running ones) while it
-        holds, by stored ones otherwise."""
+        holds; EncoderV1's BatchNorms, and those of a speaker encoder
+        trained from scratch, normalise by batch statistics (and advance
+        their running ones) while it holds, by stored ones otherwise."""
         self.train_mode = on
         for m in self.modules():
             if isinstance(m, AdaIN):
                 m.train_mode = on
+        for m in self.encoder.modules():
+            if isinstance(m, BatchNorm):
+                m.train_bn = on
         if self.speaker_encoder is not None:
             self.speaker_encoder.train_bn = (
                 on and self.cfg.train_speaker_encoder
@@ -300,24 +350,57 @@ class RAVE(nn.Module):
         applied."""
         return self.speaker_classifier(emb, labels)
 
+    def encoded_size(self) -> int:
+        """Channels of :meth:`encode`'s latent: the decoder's, less the
+        augmentation channels, which only the discrete head appends
+        there (``decode`` re-samples them for the others)."""
+        n = (0 if isinstance(self.latent, DiscreteHead)
+             else self.cfg.noise_augmentation)
+        return self.cfg.decoder_latent_size() - n
+
+    def latent_aug(self, z: torch.Tensor, aug: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None):
+        """The noise-augmentation channels ``(B, noise_augmentation,
+        T_z)`` for the latent ``z`` ``(B, C, T_z)``: ``aug``, or a standard
+        normal draw from ``generator`` (a stream's fixed draw while
+        streaming); None without ``noise_augmentation``."""
+        if self.latent_noise is None:
+            return None
+        n = self.cfg.noise_augmentation
+        return self.latent_noise((z.shape[0], n, z.shape[2]), z, aug,
+                                 generator)
+
     def reparametrize(self, z: torch.Tensor,
                       eps: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None,
                       train: bool = False, enabled=True,
-                      sampler: Optional[Sampler] = None):
+                      sampler: Optional[Sampler] = None,
+                      ref: Optional[torch.Tensor] = None,
+                      aug: Optional[torch.Tensor] = None):
         """Pre-regularisation latent -> ``(z, regulariser)``.  Variational:
         ``(B, 2 * latent, T_z)`` -> the sample ``(B, latent, T_z)`` and
         the KL, with the noise ``eps`` (shaped like the sample) or drawn
-        from ``generator``.  Discrete: the quantized latent (gated by
-        ``enabled``) and the commitment loss; a ``train`` pass updates
-        the codebooks, its random rows drawn by ``sampler`` or else from
-        ``generator``."""
-        if isinstance(self.latent, DiscreteHead):
+        from ``generator``.  Wasserstein: the latent and the MMD to the
+        normal reference ``ref`` (shaped like it, or drawn).  Spherical:
+        the normalised latent and 0.  Discrete: the quantized latent
+        (gated by ``enabled``) and the commitment loss; a ``train`` pass
+        updates the codebooks, its random rows drawn by ``sampler`` or
+        else from ``generator``.  The Wasserstein and discrete heads
+        append the augmentation channels (:meth:`latent_aug` of ``aug``
+        or ``generator``)."""
+        head = self.latent
+        if isinstance(head, DiscreteHead):
             if train and sampler is None:
                 def sampler(samples, num):
                     return sample_vectors(samples, num, generator)
-            return self.latent(z, train, enabled, sampler)
-        return self.latent(z, eps, generator)
+            return head(z, train, enabled, sampler,
+                        self.latent_aug(z, aug, generator))
+        if isinstance(head, WassersteinHead):
+            return head(z, ref, self.latent_aug(z, aug, generator),
+                        generator)
+        if isinstance(head, SphericalHead):
+            return head(z)
+        return head(z, eps, generator)
 
     def project_units(self, z: torch.Tensor,
                       target_frames: Optional[int] = None) -> torch.Tensor:
@@ -342,24 +425,33 @@ class RAVE(nn.Module):
                              fcpe_ckpt=cfg.pitch_ckpt)
         return torch.cat([z, feat.transpose(1, 2)], dim=1)
 
-    def encode(self, x: torch.Tensor) -> torch.Tensor:
-        """Audio ``(B, T, 1)`` -> latent ``(B, T_z, C)``: the variational
-        mean or the quantized latent, or the raw latent and the speaker
-        embedding; then the normalised f0 of a pitch config."""
+    def encode(self, x: torch.Tensor, aug: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Audio ``(B, T, 1)`` -> latent ``(B, T_z, C)`` (see
+        :meth:`inference_latent`)."""
         bands = self.pqmf_forward(x)
-        return self.inference_latent(x, bands,
-                                     self.encode_input(bands)).transpose(1, 2)
+        return self.inference_latent(x, bands, self.encode_input(bands),
+                                     aug, generator).transpose(1, 2)
 
     def inference_latent(self, x: torch.Tensor, bands: torch.Tensor,
-                         z_pre: torch.Tensor) -> torch.Tensor:
+                         z_pre: torch.Tensor,
+                         aug: Optional[torch.Tensor] = None,
+                         generator: Optional[torch.Generator] = None
+                         ) -> torch.Tensor:
         """The decoder's latent ``(B, C, T_z)`` at inference from the
         audio ``x``, its ``bands`` and their pre-regularisation latent:
-        the variational mean or the quantized latent, or the raw latent;
-        the speaker embedding appended where there is a speaker encoder;
-        then :meth:`append_pitch`."""
-        if isinstance(self.latent, DiscreteHead):
-            z, _ = self.latent(z_pre)
-        elif self.speaker_encoder is None:
+        the variational mean, the raw latent (Wasserstein head, or
+        speaker-conditioned), the normalised latent (spherical head) or
+        the quantized latent with its augmentation channels
+        (:meth:`latent_aug`); the speaker embedding appended where there
+        is a speaker encoder; then :meth:`append_pitch`."""
+        head = self.latent
+        if isinstance(head, DiscreteHead):
+            z, _ = head(z_pre, aug=self.latent_aug(z_pre, aug, generator))
+        elif isinstance(head, SphericalHead):
+            z, _ = head(z_pre)
+        elif (isinstance(head, VariationalHead)
+              and self.speaker_encoder is None):
             z, _ = VariationalHead.mean_scale(z_pre)
         else:
             z = z_pre
@@ -378,24 +470,53 @@ class RAVE(nn.Module):
         head = self._discrete_head("encode_indices")
         return head.encode(self.encode_input(self.pqmf_forward(x)))
 
-    def decode_indices(self, idx: torch.Tensor) -> torch.Tensor:
+    def decode_indices(self, idx: torch.Tensor,
+                       aug: Optional[torch.Tensor] = None,
+                       noise: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None
+                       ) -> torch.Tensor:
         """RVQ indices ``(B, n_quantizers, T_z)`` -> audio ``(B, T, 1)``
-        (discrete head only)."""
+        (discrete head only; the augmentation channels re-sampled as in
+        :meth:`decode`)."""
         head = self._discrete_head("decode_indices")
-        return self.pqmf_inverse(self.decode_bands(head.decode(idx)))
+        return self.decode(head.decode(idx).transpose(1, 2), aug, noise,
+                           generator)
 
-    def decode_bands(self, z: torch.Tensor) -> torch.Tensor:
-        """Latent ``(B, C, T_z)`` -> bands ``(B, M, T/M)``."""
-        return self.decoder(z)
+    def decode_bands(self, z: torch.Tensor,
+                     noise: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None,
+                     warmed_up=True) -> torch.Tensor:
+        """Latent ``(B, C, T_z)`` -> bands ``(B, M, T/M)``.  ``noise`` (or
+        ``generator``) is the noise branch's uniform draw, whose output
+        GeneratorV1 gates by ``warmed_up``."""
+        if isinstance(self.decoder, GeneratorV1):
+            return self.decoder(z, noise, generator, warmed_up)
+        return self.decoder(z, noise, generator)
 
-    def decode(self, z: torch.Tensor) -> torch.Tensor:
-        """Latent ``(B, T_z, C)`` -> audio ``(B, T, 1)``."""
-        return self.pqmf_inverse(self.decode_bands(z.transpose(1, 2)))
+    def decode(self, z: torch.Tensor, aug: Optional[torch.Tensor] = None,
+               noise: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Latent ``(B, T_z, C)`` -> audio ``(B, T, 1)``.  A latent short
+        of the ``noise_augmentation`` channels gets them
+        (:meth:`latent_aug`) after its first ``latent_size`` channels."""
+        cfg = self.cfg
+        z = z.transpose(1, 2)
+        n = cfg.noise_augmentation
+        if n and z.shape[1] == cfg.decoder_latent_size() - n:
+            lat = cfg.latent_size
+            z = torch.cat([z[:, :lat], self.latent_aug(z, aug, generator),
+                           z[:, lat:]], dim=1)
+        return self.pqmf_inverse(self.decode_bands(z, noise, generator))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.decode(self.encode(x))
+    def forward(self, x: torch.Tensor, aug: Optional[torch.Tensor] = None,
+                noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.decode(self.encode(x, aug, generator), aug, noise,
+                           generator)
 
-    def convert(self, x: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    def convert(self, x: torch.Tensor, target: torch.Tensor,
+                noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Voice conversion, offline: the content of ``x`` ``(B, T, 1)``
         in the voice of ``target`` ``(B, T', 1)``.  The first
         ``min(T, T')`` samples of each are cut into ``segs`` segments (4
@@ -404,7 +525,8 @@ class RAVE(nn.Module):
         against the sources; the embedding is the mean over the target's
         segments.  A segment length that is not a multiple of the band
         count fails in the PQMF, as in the JAX package.  A pitch config
-        appends the source's normalised f0."""
+        appends the source's normalised f0.  ``noise``/``generator``:
+        the noise branch's draw (:meth:`decode_bands`)."""
         if self.speaker_encoder is None:
             raise ValueError("convert needs a speaker-conditioned model")
         bands = self.pqmf_forward(x)
@@ -423,4 +545,4 @@ class RAVE(nn.Module):
         emb = emb_all.reshape(2, B, segs, -1)[1].mean(dim=1)
         # the source's prosody, the target's timbre
         z = self.append_pitch(self.condition(z, emb), x)
-        return self.pqmf_inverse(self.decode_bands(z))
+        return self.pqmf_inverse(self.decode_bands(z, noise, generator))

@@ -22,44 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv import Conv1d
-from .blocks import DilatedUnit, Residual
-
-
-class BatchNorm(nn.Module):
-    """flax's ``BatchNorm`` over the channel axis 1 (eps 1e-5, momentum
-    0.99).  With ``train_bn`` false it normalises by the stored
-    statistics (``use_running_average=True``).  With ``train_bn`` it
-    normalises by the batch's mean and biased variance, taken as
-    ``max(E[x^2] - E[x]^2, 0)`` (flax's ``use_fast_variance``), and moves
-    the stored ones to ``0.99 * r + 0.01 * batch``; the update happens
-    under ``no_grad`` too, as a flax D step's does.  ``F.batch_norm``'s
-    training mode differs (unbiased variance in the update, momentum 0.1).
-    ``train()`` and ``eval()`` change nothing: ``train_bn`` decides."""
-
-    def __init__(self, channels: int, eps: float = 1e-5,
-                 momentum: float = 0.99):
-        super().__init__()
-        self.eps, self.momentum = eps, momentum
-        self.train_bn = False
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
-        self.register_buffer("running_mean", torch.zeros(channels))
-        self.register_buffer("running_var", torch.ones(channels))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.train_bn:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.eps)
-        axes = (0,) + tuple(range(2, x.dim()))
-        mu = x.mean(dim=axes)
-        var = torch.clamp((x * x).mean(dim=axes) - mu * mu, min=0.0)
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.mul_(m).add_(mu.detach(), alpha=1 - m)
-            self.running_var.mul_(m).add_(var.detach(), alpha=1 - m)
-        shape = (1, -1) + (1,) * (x.dim() - 2)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mu.view(shape)) * mul.view(shape) + self.bias.view(shape)
+from .blocks import BatchNorm, DilatedUnit, Residual
 
 
 class CohortNorm(nn.Module):

@@ -221,6 +221,53 @@ class Delay(Cached):
         return xx[:, :, :x.shape[2]]
 
 
+class StreamDraw(Cached):
+    """A random tensor of a block: uniform in [-1, 1) or standard normal.
+
+    Offline, each call takes the ``value`` it is given or draws one from
+    ``generator`` (there is no hidden source).  Streaming, the draw is
+    the module's cache and comes back unchanged, so that every chunk of
+    a stream reuses one draw, as the JAX package's stream does with its
+    fixed keys; the stream sets it (:meth:`sample`) and restores it on
+    reset like any other cache.  An unset cache starts as ``value`` or
+    zeros.
+    """
+
+    def __init__(self, kind: str, ss: StreamSetup = StreamSetup()):
+        super().__init__()
+        if kind not in ("uniform", "normal"):
+            raise ValueError(f"unknown draw {kind!r}")
+        self.kind, self.ss = kind, ss
+
+    def sample(self, shape, generator: torch.Generator, device=None,
+               dtype=torch.float32) -> torch.Tensor:
+        if self.kind == "normal":
+            return torch.randn(shape, generator=generator, device=device,
+                               dtype=dtype)
+        return torch.rand(shape, generator=generator, device=device,
+                          dtype=dtype) * 2 - 1
+
+    def forward(self, shape, like: torch.Tensor,
+                value: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        shape = tuple(shape)
+        if self.ss.streaming and self.cache is not None:
+            return self.cache
+        if value is None and not self.ss.streaming:
+            if generator is None:
+                raise ValueError(f"a {self.kind} draw of shape {shape} "
+                                 "needs a value or a generator")
+            value = self.sample(shape, generator, like.device, like.dtype)
+        if value is None:
+            value = like.new_zeros(shape)
+        if tuple(value.shape) != shape:
+            raise ValueError(f"{self.kind} draw: {tuple(value.shape)} for "
+                             f"{shape}")
+        if self.ss.streaming:
+            self.cache = value
+        return value
+
+
 def stream_caches(root: nn.Module, fn, *args) -> tuple[list, list]:
     """The :class:`Cached` modules of ``root`` that ``fn`` carries state
     in, in module order (``carry_last`` ones after the others), and the

@@ -1,8 +1,10 @@
-"""Audio distances and GAN losses of the v2 and ``v2_fork`` train steps.
+"""Audio distances and GAN losses of the train steps, and the filtered-
+noise helpers of the noise generators.
 
 Port of ``mod_sigmoid``, ``mean_difference``, ``audio_distance_v1``,
-``mr_stft_resolutions``, ``multi_resolution_stft_loss`` and the GAN
-objectives of ``rave_tpu/ops/losses.py``.  Means accumulate in float32.
+``mr_stft_resolutions``, ``multi_resolution_stft_loss``, the GAN
+objectives, ``amp_to_impulse_response`` and ``fft_convolve`` of
+``rave_tpu/ops/losses.py``.  Means accumulate in float32.
 The JAX package's packed spectral features (``valid_frac``) have no
 counterpart here: the port's discriminators return native feature maps,
 whose plain means are what the packed ones correct to.
@@ -118,3 +120,30 @@ GAN_LOSSES: dict[str, Callable] = {
     "ls": ls_gan,
     "nonsaturating": nonsaturating_gan,
 }
+
+
+def amp_to_impulse_response(amp: torch.Tensor,
+                            target_size: int) -> torch.Tensor:
+    """Band amplitudes ``(..., bands)`` -> a windowed impulse response
+    ``(..., target_size)``: the inverse real FFT of the amplitudes as
+    zero-phase spectra, centred, times a symmetric Hann window, padded
+    to ``target_size`` and rolled back so that it starts at 0."""
+    ir = torch.fft.irfft(amp.to(torch.complex64), dim=-1)
+    n = ir.shape[-1]
+    ir = torch.roll(ir, n // 2, dims=-1)
+    win = 0.5 * (1 - torch.cos(2 * math.pi * torch.arange(
+        n, device=ir.device, dtype=ir.dtype) / (n - 1)))
+    ir = F.pad(ir * win, (0, int(target_size) - n))
+    return torch.roll(ir, -n // 2, dims=-1)
+
+
+def fft_convolve(signal: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """Linear convolution of ``signal`` with ``kernel`` on the last axis
+    (both of length ``T``) by FFT: the signal zero-padded on the right,
+    the kernel on the left, the second half of the circular result."""
+    T = signal.shape[-1]
+    signal = F.pad(signal, (0, T))
+    kernel = F.pad(kernel, (kernel.shape[-1], 0))
+    out = torch.fft.irfft(torch.fft.rfft(signal) * torch.fft.rfft(kernel),
+                          n=signal.shape[-1])
+    return out[..., out.shape[-1] // 2:]

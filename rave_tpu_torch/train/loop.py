@@ -1,8 +1,7 @@
-"""The v2, ``v2_fork``, ``discrete`` and ``v3`` train steps and the eval
-step.
+"""The train steps of every ported preset and the eval step.
 
-Port of ``rave_tpu/train/loop.py`` for the variational and discrete
-latent heads:
+Port of ``rave_tpu/train/loop.py`` (every latent head; ``v1`` and the v2
+family, with or without the noise branch):
 
 * Adam groups with ``betas=(adam_b1, adam_b2)`` and eps 1e-8: ENC
   (encoder, latent head, unit CE projection), DEC (decoder), DIS
@@ -19,10 +18,21 @@ latent heads:
   parameters collect no gradient); a D step recomputes the generator
   forward without gradient, its latent noise given or drawn as a G
   step's is;
-* the upstream branch (v2) samples the latent with noise ``eps``, given
-  to the step or drawn from the state's generator, and adds the KL times
-  the beta schedule; its reconstruction loss is ``audio_distance_v1``
-  over the bands and over the audio.  The fork's branch draws no random
+* the upstream branch (v1, v2) samples the latent with noise ``eps``,
+  given to the step or drawn from the state's generator, and adds the KL
+  times the beta schedule; its reconstruction loss is
+  ``audio_distance_v1`` over the bands and over the audio.  The other
+  heads take their regulariser times beta the same way: the Wasserstein
+  head's MMD against the normal reference ``draws["ref"]`` (shaped like
+  the latent), the spherical head's 0; the Wasserstein and discrete heads
+  append the augmentation channels ``draws["aug"]`` ``(B,
+  noise_augmentation, T_z)``.  The noise branch of the generator takes
+  the uniform ``draws["noise"]``, GeneratorV1's output gated by
+  :func:`~rave_tpu_torch.train.schedules.warmed_up`.  A draw left out of
+  ``draws`` comes from the state's generator.  EncoderV1's BatchNorms
+  (unless ``v1_sample_norm``) normalise by batch statistics and advance
+  their running ones in D and G steps alike (a D step runs the
+  generator's forward too).  The fork's branch draws no random
   numbers (the decoder sees the detached raw latent and the speaker
   embedding, no noise), so its step is deterministic.  The discrete
   branch quantizes the latent through the residual VQ, gated by
@@ -259,13 +269,15 @@ def receptive_field_frames(cfg: RAVEConfig) -> tuple[int, int]:
 def _forward_losses(cfg: RAVEConfig, model: RAVE, batch: Mapping, step: int,
                     eps: Optional[torch.Tensor] = None,
                     generator: Optional[torch.Generator] = None,
-                    sampler=None) -> dict:
+                    sampler=None, draws: Optional[Mapping] = None) -> dict:
     """Generator-side forward: every loss term but the GAN's, the latent
     regulariser (0 for the fork), the speaker terms (``aux``, see
     :func:`speaker_terms`) and the cropped real and fake audio.  The
     variational branch samples the latent with ``eps``, or draws it from
     ``generator``; the discrete branch quantizes it in a train pass
-    (``sampler``, else ``generator``)."""
+    (``sampler``, else ``generator``); ``draws`` holds the other random
+    tensors (``ref``, ``aug``, ``noise``; see the module docstring)."""
+    draws = draws or {}
     x = batch["x"]
     bands_x = model.pqmf_forward(x)
     bands_xp = (model.pqmf_forward(batch["x_perturbed"])
@@ -288,13 +300,15 @@ def _forward_losses(cfg: RAVEConfig, model: RAVE, batch: Mapping, step: int,
     else:
         z_dec, reg = model.reparametrize(
             z_pre, eps, generator, train=True,
-            enabled=schedules.quantize_enabled(step, cfg), sampler=sampler)
+            enabled=schedules.quantize_enabled(step, cfg), sampler=sampler,
+            ref=draws.get("ref"), aug=draws.get("aug"))
     # a pitch config: the normalised f0 of the clean signal (a function
     # of the data alone, so without gradient), by the batch's speaker
     # statistics where it has them, else by the item's own
     z_dec = model.append_pitch(z_dec, x, batch.get("f0_median"),
                                batch.get("f0_std"))
-    bands_y = model.decode_bands(z_dec)
+    bands_y = model.decode_bands(z_dec, draws.get("noise"), generator,
+                                 schedules.warmed_up(step, cfg))
 
     if cfg.valid_signal_crop:
         lc, rc = receptive_field_frames(cfg)
@@ -365,10 +379,10 @@ def _frozen(module: torch.nn.Module):
 
 
 def _generator_step(cfg: RAVEConfig, state: TrainState, batch,
-                    eps: Optional[torch.Tensor], sampler) -> dict:
+                    eps: Optional[torch.Tensor], sampler, draws) -> dict:
     with _frozen(state.disc):
         out = _forward_losses(cfg, state.model, batch, state.step, eps,
-                              state.generator, sampler)
+                              state.generator, sampler, draws)
         loss_terms = dict(out["dists"])
         if not cfg.speaker_embedding_size:
             loss_terms["regularization"] = out["reg"] * schedules.beta_factor(
@@ -412,10 +426,10 @@ def _generator_step(cfg: RAVEConfig, state: TrainState, batch,
 
 
 def _discriminator_step(cfg: RAVEConfig, state: TrainState, batch,
-                        eps: Optional[torch.Tensor], sampler) -> dict:
+                        eps: Optional[torch.Tensor], sampler, draws) -> dict:
     with torch.no_grad():
         out = _forward_losses(cfg, state.model, batch, state.step, eps,
-                              state.generator, sampler)
+                              state.generator, sampler, draws)
     loss_dis, _, _ = _gan_terms(cfg, state.disc, out["x"], out["y"])
     state.dis_opt.zero_grad(set_to_none=True)
     loss_dis.backward()
@@ -424,8 +438,8 @@ def _discriminator_step(cfg: RAVEConfig, state: TrainState, batch,
 
 
 def make_train_step(cfg: RAVEConfig):
-    """``train_step(state, batch, eps=None, sampler=None) -> metrics``:
-    one D or G step
+    """``train_step(state, batch, eps=None, sampler=None, draws=None) ->
+    metrics``: one D or G step
     chosen by ``state.step``, which it then advances.  ``batch`` holds
     ``x`` ``(B, T, 1)`` float32, optionally ``x_perturbed`` (same shape),
     ``units`` ``(B, frames)`` int64 and, for a pitch config,
@@ -434,17 +448,22 @@ def make_train_step(cfg: RAVEConfig):
     without it the step draws it from ``state.generator``.  ``sampler``
     ``(samples, num) -> rows`` draws the discrete branch's k-means seeds
     and fresh codes (default: rows with replacement from
-    ``state.generator``).  Metric values are
+    ``state.generator``).  ``draws`` maps ``ref``, ``aug`` and ``noise``
+    to the other random tensors of the step (see the module docstring;
+    each left out is drawn from ``state.generator``).  Metric values are
     0-d tensors on that device (or 0.0 for an untaken term), plus
     ``beta`` and ``warmed_up`` of the step taken."""
 
     def train_step(state: TrainState, batch: Mapping,
-                   eps: Optional[torch.Tensor] = None, sampler=None) -> dict:
+                   eps: Optional[torch.Tensor] = None, sampler=None,
+                   draws: Optional[Mapping] = None) -> dict:
         step = state.step
         if schedules.is_discriminator_step(step, cfg):
-            metrics = _discriminator_step(cfg, state, batch, eps, sampler)
+            metrics = _discriminator_step(cfg, state, batch, eps, sampler,
+                                          draws)
         else:
-            metrics = _generator_step(cfg, state, batch, eps, sampler)
+            metrics = _generator_step(cfg, state, batch, eps, sampler,
+                                      draws)
         state.step = step + 1
         metrics["beta"] = schedules.beta_factor(step, cfg)
         metrics["warmed_up"] = float(schedules.warmed_up(step, cfg))
@@ -454,9 +473,11 @@ def make_train_step(cfg: RAVEConfig):
 
 
 def make_eval_step(cfg: RAVEConfig):
-    """``eval_step(state, batch) -> (metrics, y, z_mean)``: the
+    """``eval_step(state, batch, draws=None) -> (metrics, y, z_mean)``: the
     ``audio_distance_v1`` (``validation``) between ``x`` and the full
-    deterministic forward ``y`` ``(B, T, 1)``, and the pre-regularisation
+    forward ``y`` ``(B, T, 1)`` (its augmentation channels and noise
+    branch from ``draws`` ``aug`` and ``noise``, else from
+    ``state.generator``), and the pre-regularisation
     latent ``(B, T_z, C)``, its first half of the channels for a
     variational head (the posterior mean, which
     ``latent_stats.fit_latent_pca`` takes).  With
@@ -464,14 +485,17 @@ def make_eval_step(cfg: RAVEConfig):
     ``val_unit_ce`` and ``val_unit_accuracy``.  The model runs with
     ``train_mode`` off, as the JAX eval step builds it."""
 
-    def eval_step(state: TrainState, batch: Mapping):
-        model, x = state.model, batch["x"]
+    def eval_step(state: TrainState, batch: Mapping,
+                  draws: Optional[Mapping] = None):
+        model, x, draws = state.model, batch["x"], draws or {}
+        g = state.generator
         with torch.no_grad(), serving_mode(model):
             # the forward, its encoder pass shared with z_mean
             bands = model.pqmf_forward(x)
             z_pre = model.encode_input(bands)
-            y = model.pqmf_inverse(model.decode_bands(
-                model.inference_latent(x, bands, z_pre)))
+            z = model.inference_latent(x, bands, z_pre, draws.get("aug"), g)
+            y = model.decode(z.transpose(1, 2), draws.get("aug"),
+                             draws.get("noise"), g)
             t = min(x.shape[1], y.shape[1])
             metrics = {"validation": L.audio_distance_v1(
                 x[:, :t, 0], y[:, :t, 0], cfg.stft_scales, cfg.log_epsilon)}

@@ -139,3 +139,35 @@ def test_manifest_matches_jax(exported, name, prefix):
     assert sorted(map(_as_jax, caches)) == sorted(jin[:len(caches)])
     assert ((port / MANIFEST[prefix]).read_text().splitlines()[0]
             == (ref / MANIFEST[prefix]).read_text().splitlines()[0])
+
+
+def test_v3_forward_carries_adain_states_after_caches(tmp_path):
+    """The ``v3`` stream's ``forward.pt2`` (the program a ``v3`` package is
+    compiled from): its flat inputs and outputs are the manifest's, line
+    by line, with one AdaIN state ``(1, C, 8)`` per AdaIN module after
+    the conv caches, and ``cache_init.bin`` ends with their initial
+    values.  ``torch.export`` only; the AOTInductor compile runs on the
+    card (``chip_smoke.py``)."""
+    stack = ["v3"]
+    over = ["capacity=4", "n_signal=16384", "ratios=[2,2]",
+            "dilations=[[1,3],[1,3]]"]
+    torch.manual_seed(0)
+    cfg = build_config(stack, over)
+    sr = StreamingRAVE(cfg, RAVE(cfg, device="cpu").state_dict(),
+                       chunk_size=CHUNK, device="cpu")
+    out = sr.serialize(tmp_path)
+    ins, outs = flat_io_shapes(torch.export.load(out / "forward.pt2"))
+    mins, mouts = _manifest(out / "io_manifest.txt")
+    assert ins == [d for _, d in mins] and outs == [d for _, d in mouts]
+    n, k = len(sr.init_caches), sr.n_adain
+    assert mins[:n] == mouts[1:] and mins[n] == (4 * CHUNK, (1, CHUNK, 1))
+    # the encoder's and the decoder's AdaIN modules: one per residual unit
+    assert k == 8
+    widths = sorted(d[1] for _, d in mins[n - k:n])
+    assert all(d[0] == 1 and d[2] == 8 for _, d in mins[n - k:n])
+    assert widths == [4, 4, 4, 4, 8, 8, 8, 8]
+    raw = np.fromfile(out / "cache_init.bin", "<f4")
+    tail = np.concatenate([c.numpy().reshape(-1)
+                           for c in sr.init_caches[n - k:]])
+    np.testing.assert_array_equal(raw[raw.size - tail.size:], tail)
+    assert raw.size == sum(nb for nb, _ in mins[:n]) // 4

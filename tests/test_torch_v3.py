@@ -1,8 +1,9 @@
 """Snake, AdaIN and the ``v3`` / ``discrete_v3`` presets in the port
 against ``rave_tpu``: the activation, AdaIN's identity in training and
 its serving update rule, the offline forwards, the streamed AdaIN
-controls workflow, its CUDA-graph-free scan path, and ``serialize`` with
-the AdaIN state in the carried caches.
+controls workflow, its CUDA-graph-free scan path, ``serialize`` with
+the AdaIN state in the carried caches, and the causal streams of
+``v3``, ``discrete`` and ``discrete_v3`` (with ``encode_indices``).
 
 Tolerances: the activation and AdaIN alone 1e-6 (elementwise float32;
 ``std`` with ``ddof=1`` reduced in another order: 2e-6); whole models
@@ -373,3 +374,51 @@ def test_stereo_with_adain_raises():
         StreamingRAVE(cfg, state, stereo=True, device="cpu")
     with pytest.raises(ValueError, match="AdaIN states"):
         StreamingRAVE(cfg, state, device="cpu", adain_state=[])
+
+
+@pytest.mark.parametrize("stack", [["v3", "causal"], ["discrete", "causal"],
+                                   ["discrete_v3", "causal"]],
+                         ids=lambda s: "+".join(s))
+def test_causal_stream(stack):
+    """A causal Snake, AdaIN or RVQ stream (random codebooks): the port's
+    offline forward against the JAX package's, its 2048-sample stream
+    against its own offline run after the delay (median relative error
+    < 0.02, ``tests/test_streaming.py``), and for the discrete head the
+    streamed ``encode_indices`` equal to the JAX package's offline ones
+    shifted by the encoder's delay in latent frames, past a warm-up of
+    that many frames (as the audio comparison skips twice the delay).
+    No JAX stream is built."""
+    cfg, m, v, x = _jax_vars(stack, T=16384)
+    r = np.random.default_rng(7)
+    if "quantizer" in v:
+        v["quantizer"] = jax.tree.map(
+            lambda a: (r.standard_normal(a.shape) * 0.5).astype(np.float32)
+            if a.ndim else np.float32(1.0), v["quantizer"])
+    state = {k: v[k] for k in v if k != "params"}
+    jv = {"params": v["params"], **state}
+    y_j = np.asarray(jax.jit(lambda v, a: m.apply(v, a))(jv, jnp.asarray(x)))
+    port = RAVE(build_config(stack, TINY), device="cpu", train_mode=False)
+    load_flax_params(port, v["params"], model_state=state)
+    with torch.no_grad():
+        y_t = port(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(y_t, y_j, atol=1e-4)
+    ts = StreamingRAVE(build_config(stack, TINY), port.state_dict(),
+                       chunk_size=2048, device="cpu")
+    streamed = ts.process_file(x[0, :, 0])
+    d, n = ts.total_delay_samples(), x.shape[1]
+    assert d < n // 2
+    start = 2 * d + 256
+    a, b = y_t[0, start - d:n - d - 256, 0], streamed[start:n - 256]
+    assert np.median(np.abs(a - b)) / (np.abs(a).mean() + 1e-9) < 0.02
+    if cfg.latent_head != "discrete":
+        return
+    i_j = np.asarray(jax.jit(lambda v, a: m.apply(
+        v, a, method=JRAVE.encode_indices))(jv, jnp.asarray(x)))
+    ts.reset()
+    i_t = np.concatenate([ts.encode_indices(x[:, i:i + 2048]).numpy()
+                          for i in range(0, n, 2048)], axis=-1)
+    lag = ts.model.encoder.out_delay
+    assert i_t.shape == i_j.shape and 0 < lag < i_j.shape[-1] // 2
+    # past the first ``lag`` frames of the stream, which the offline
+    # (centered) PQMF pads differently
+    np.testing.assert_array_equal(i_t[..., 2 * lag:], i_j[..., lag:-lag])
