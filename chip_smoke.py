@@ -238,6 +238,34 @@ the last line:
    served by the C++ host over 32 blocks of 2048: every block and the
    last caches (the AdaIN states after the conv caches) against
    ``StreamingRAVE.forward`` (2e-4), p50/p80 block time.
+15. hybrid: the ``hybrid`` preset (the log1p mel front end, 2048/128/128,
+   feeding an encoder of ratios 2, 2, 2; two GRU layers on the decoder's
+   latent) at full width with ``fused_kernels=true``, random weights
+   from seed 0.  (a) The offline forward of 4 x 131072 (B1 exactly 10
+   launches: 2 in the encoder, 8 in the decoder), finite and shaped like
+   the input, fused vs plain and card vs CPU on 8192 samples (2e-4), the
+   median of 10 batches (the plain copy in turns), a profile (B1's, the
+   FFTs' and cuDNN's RNN kernels' shares) and the mel front end's and
+   the decoder GRU's time alone (profiler and CUDA events).  (b)
+   Request 0 in 2048-sample chunks (no B1) against the offline forward
+   shifted by the delay past ``tests/test_streaming.py``'s hybrid margin
+   (median relative error < 0.02), chunk median and p80,
+   ``process_file_scan`` against ``process_file`` (2e-4) and ms per
+   chunk of each.  (c) D, G, G, G at 8 x 131072 from ``phase_1_duration``
+   (B1 10 per step), timed cycles, peak memory, a profile of one G
+   step; a D, G pair at 4 x 65536 card vs CPU (one thread,
+   ``learning_rate=1e-6``, ``log_epsilon=1e-3``): losses and ENC, DEC,
+   GRU and DIS gradient norms rtol 1e-3.  (d) The stream's
+   ``serialize`` (before phase 6): the reloaded ``forward.pt2`` against
+   the live step over 8 chunks (2e-4); its ``forward`` package, compiled
+   by phase 14's ``nice 19`` subprocess after ``v3``'s, served by the C++
+   host over 32 blocks of 2048: every block and the last caches (the mel
+   context and the GRU states among them) against
+   ``StreamingRAVE.forward`` (2e-4), p50/p80 block time.  (e) The ported
+   distances of 4 x 65536 voices on the card against the CPU (1e-4
+   relative): the mel ``audio_distance_v1``, ``spectral_distance`` with
+   mels, ``encodec_audio_distance`` and the weighted instantaneous-
+   frequency distance.
 
 Before the last line it prints the ``nvidia-smi`` line and one JSON
 object ``{"kernels": [...]}``; the last line is
@@ -415,7 +443,16 @@ def phase_kernels(torch, ru, launches_per_shape):
                 torch, plain)
         k = 3
         info = ru.launch_info(B, C, T, k, d)
-        check(info["ctas"] >= 128, f"B1 {(B, T, C)}: {info['ctas']} CTAs")
+        # one CTA per batch row, 64-step time tile and 64 channels; the
+        # C / 64 CTAs of a time tile in one cluster
+        check(info["ctas"] == B * -(-T // 64) * (C // 64)
+              and info["cluster"] == C // 64,
+              f"B1 {(B, T, C)}: {info['ctas']} CTAs, cluster "
+              f"{info['cluster']}")
+        # the v2 and discrete paths fill the card's 132 SMs; the hybrid
+        # encoder's units at batch 4 are 64 CTAs, half of them
+        check(info["ctas"] >= 128 or path == "offline_hybrid",
+              f"B1 {(B, T, C)}: {info['ctas']} CTAs")
         flops = 2 * B * T * C * C * (k + 1)
         nbytes = 4 * (2 * B * T * C + (k + 1) * C * C + 2 * C)
         # the kernel runs on the tensor cores in 3xTF32: three products
@@ -2286,9 +2323,15 @@ def codebook_err(torch, got, want) -> float:
 
 
 def grad_norms(torch, st) -> dict:
+    """The gradient norms of the encoder and the decoder, and of the GRU
+    layers (``gru``) where the model has them."""
+    groups = [("enc", st.enc_params), ("dec", st.dec_params)]
+    gru = [p for n, p in st.model.named_parameters() if ".gru." in n]
+    if gru:
+        groups.append(("gru", gru))
     return {g: float(torch.sqrt(sum((p.grad.double() ** 2).sum()
                                     for p in ps)))
-            for g, ps in (("enc", st.enc_params), ("dec", st.dec_params))}
+            for g, ps in groups}
 
 
 def dis_grad_norm(torch, st) -> float:
@@ -3150,14 +3193,15 @@ def bn_buffers(torch, model) -> list:
 
 
 def a6_serve(torch, np, KERNELS, stack, over, audio, expect_b1, card,
-             device="cuda"):
+             device="cuda", names=("residual_unit", "fft"), phase="a6"):
     """Offline serving of ``stack`` at its full width (random weights from
     the seed, ``train_mode`` off), the draws injected: ``expect_b1``
     launches of B1 per forward, finite output of the input's shape, fused
     vs plain (where the config fuses) and card vs CPU on 8192 samples
     within ``CPU_TOL``, the median of 10 batches (the plain copy in
-    turns) and a profile of one (B1's and the FFTs' shares).  Returns
-    the model, its state and the numbers."""
+    turns) and a profile of one (the shares of the kernels whose names
+    hold each of ``names``: B1's and the FFTs').  Returns the model, its
+    state and the numbers, which it emits under ``phase``."""
     from rave_tpu_torch.config import build_config
     from rave_tpu_torch.models.rave import RAVE
 
@@ -3212,7 +3256,7 @@ def a6_serve(torch, np, KERNELS, stack, over, audio, expect_b1, card,
                     warmup=0))
         res["peak_mem_mb"] = torch.cuda.max_memory_allocated() / 2 ** 20
         prof = device_profile(torch, lambda: forward_with(model, x, d),
-                              names=("residual_unit", "fft"))
+                              names=names)
     prof["share"] = {n: ms / prof["device_ms"]
                      for n, ms in prof["named_ms"].items()}
     res.update(batch_ms=statistics.median(times), batch_ms_all=times,
@@ -3220,7 +3264,7 @@ def a6_serve(torch, np, KERNELS, stack, over, audio, expect_b1, card,
                profile=prof)
     if times_plain:
         res["plain_batch_ms"] = statistics.median(times_plain)
-    emit({"phase": "a6", "step": "offline", "card": card, **res})
+    emit({"phase": phase, "step": "offline", "card": card, **res})
     return cfg, model, state, y, res
 
 
@@ -3532,16 +3576,17 @@ def phase_a6(torch, np, KERNELS, audio, card, v3, device="cuda"):
     return out
 
 
-def a6_v3_export(torch, device="cuda"):
+def a6_v3_export(torch, device="cuda", after=()):
     """The full-width ``v3`` stream with AdaIN states that hold statistics
     (learning off, so every block transfers), serialized under
     ``rave_tpu_torch/_build/``, its ``forward`` compiled into an
     AOTInductor package by a subprocess at the lowest CPU priority
-    (``nice 19``): started before phase 6, the compile (2-3 min, a
-    process's first) overlaps the device-bound train phases and leaves
-    the CPU to them, and phase 14 serves the package.  Returns the
-    stream, the directory, the subprocess and the stream without the
-    statistics."""
+    (``nice 19``), then the ``forward`` of each export directory of
+    ``after`` (phase 15's hybrid) by the same subprocess: started before
+    phase 6, the compiles (2-3 min each) overlap the device-bound train
+    phases and leave the CPU to them, and phases 14 and 15 serve the
+    packages (:func:`compiled_packages`).  Returns the stream, the
+    directory, the subprocess and the stream without the statistics."""
     from rave_tpu_torch.config import build_config
     from rave_tpu_torch.export.streaming import StreamingRAVE
     from rave_tpu_torch.models.blocks import AdaIN
@@ -3569,13 +3614,49 @@ def a6_v3_export(torch, device="cuda"):
                        adain_state=adain)
     exp = BUILD_DIR / "a6_native_v3"
     sr.serialize(exp)
+    return {"stream": sr, "dir": exp, "plain": base,
+            **compile_in_background([exp, *after], device)}
+
+
+def compile_in_background(dirs, device="cuda") -> dict:
+    """A subprocess at ``nice 19`` compiling the ``forward`` package of
+    each export directory of ``dirs`` in turn (see
+    :func:`compiled_packages`)."""
     proc = subprocess.Popen(
         [sys.executable, "-c", "import json, os, sys; os.nice(19); "
-         "from rave_tpu_torch.export.native import compile_package; "
-         "p, s = compile_package(sys.argv[1], 'forward', sys.argv[2]); "
-         "print(json.dumps([str(p), s]))", str(exp), str(device)],
+         "from rave_tpu_torch.export.native import compile_package\n"
+         "for d in sys.argv[2:]:\n"
+         "    p, s = compile_package(d, 'forward', sys.argv[1])\n"
+         "    print(json.dumps([str(p), s]), flush=True)",
+         str(device), *map(str, dirs)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return {"stream": sr, "dir": exp, "compile": proc, "plain": base}
+    return {"compile": proc, "dirs": list(dirs)}
+
+
+def compiled_packages(v3) -> dict:
+    """The packages the subprocess of :func:`compile_in_background`
+    (``v3["compile"]``) compiled, once it has ended: ``{export dir:
+    (package, compile seconds)}``; the seconds waited for it (at the
+    first call) in ``v3["compile_wait_s"]``."""
+    from pathlib import Path
+    if "packages" not in v3:
+        proc = v3["compile"]
+        t0 = time.perf_counter()
+        try:
+            text = proc.communicate(timeout=NATIVE_TIMEOUT)[0]
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        v3["compile_wait_s"] = time.perf_counter() - t0
+        check(proc.returncode == 0, f"package compiles: {text[-2000:]}")
+        lines = [json.loads(ln) for ln in text.strip().splitlines()
+                 if ln.startswith('["')]
+        check(len(lines) == len(v3["dirs"]),
+              f"package compiles: {len(lines)} of {len(v3['dirs'])}")
+        v3["packages"] = {d: (Path(p), sec)
+                          for d, (p, sec) in zip(v3["dirs"], lines)}
+    return v3["packages"]
 
 
 def a6_native_v3(torch, np, audio, card, v3, device="cuda"):
@@ -3584,39 +3665,270 @@ def a6_native_v3(torch, np, audio, card, v3, device="cuda"):
     2048: every block and the last caches (the AdaIN states included)
     against ``StreamingRAVE.forward`` within ``EXPORT_TOL``; p50/p80
     block time; the transfer changes the output."""
-    from pathlib import Path
     from rave_tpu_torch.export import native
 
-    sr, exp, proc = v3["stream"], v3["dir"], v3["compile"]
-    t0 = time.perf_counter()
-    try:
-        text = proc.communicate(timeout=NATIVE_TIMEOUT)[0]
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    wait_s = time.perf_counter() - t0
-    check(proc.returncode == 0, f"v3 package compile: {text[-2000:]}")
-    pkg, compile_s = json.loads(text.strip().splitlines()[-1])
+    sr, exp = v3["stream"], v3["dir"]
+    compiled = compiled_packages(v3)[exp]
     host = native.build_host(device)
     n = NATIVE_VC_BLOCKS
     signal = audio[0, :n * CHUNK].astype(np.float32)
     res, y, carry, _ = serve_native(torch, np, exp, "forward",
                                     signal.reshape(n, CHUNK), host, device,
-                                    compiled=(Path(pkg), compile_s))
+                                    compiled=compiled)
     want = sr.process_file(signal).reshape(n, CHUNK)
     live = np.concatenate([c.reshape(-1).cpu().numpy() for c in sr.caches])
     res.update(hold_host(np, "v3 forward", y, want, carry, live))
     plain = v3["plain"].process_file(signal).reshape(n, CHUNK)
     check(float(np.abs(plain - want).max()) > 1e-3,
           "v3: the AdaIN transfer changed nothing")
-    res.update(n_adain_states=sr.n_adain, compile_wait_s=wait_s,
+    res.update(n_adain_states=sr.n_adain,
+               compile_wait_s=v3["compile_wait_s"],
                compiled_in_background=True)
     emit({"phase": "a6", "step": "native_v3", "card": card, "config": "v3",
           "chunk": CHUNK, "chunk_ms_of_audio": CHUNK / 44.1, **res})
     shutil.rmtree(exp)
     return {k: res[k] for k in ("compile_s", "block_ms_p50", "block_ms_p80",
                                 "max_abs_err_vs_program")}
+
+
+# ----------------------------------------------------------------------
+# phase 15: the hybrid preset (mel front end, GRU layers) and the rest
+# of the loss library (ROADMAP A7)
+# ----------------------------------------------------------------------
+
+HYBRID_OVER = ["fused_kernels=true"]
+HYBRID_B1 = 10           # B1 launches per hybrid forward and D or G step
+HYBRID_STREAM_CHUNKS = 64   # 2048-sample chunks of request 0 (131072)
+SERIALIZE_CHUNKS = 8     # chunks of the reloaded forward.pt2 vs the live step
+LOSS_RTOL = 1e-4         # card vs CPU of each ported distance
+
+
+def hybrid_export(torch, device="cuda"):
+    """The full-width ``hybrid`` stream (``fused_kernels=true``, random
+    weights from the seed: the weights of phase 15's offline model) of
+    2048-sample chunks, serialized under ``rave_tpu_torch/_build/`` before
+    phase 6, so that :func:`a6_v3_export`'s subprocess compiles its
+    ``forward`` after ``v3``'s.  Returns the stream and the directory."""
+    from rave_tpu_torch.config import build_config
+    from rave_tpu_torch.export.streaming import StreamingRAVE
+    from rave_tpu_torch.models.rave import RAVE
+    from rave_tpu_torch.ops.kernels.build import BUILD_DIR
+
+    cfg = build_config(["hybrid"], HYBRID_OVER)
+    torch.manual_seed(SEED)
+    state = RAVE(cfg, device=device, train_mode=False).state_dict()
+    sr = StreamingRAVE(cfg, state, chunk_size=CHUNK, device=device)
+    exp = BUILD_DIR / "hybrid_native"
+    t0 = time.perf_counter()
+    sr.serialize(exp)
+    return {"stream": sr, "dir": exp, "state": state,
+            "serialize_s": time.perf_counter() - t0}
+
+
+def hybrid_stream(torch, np, KERNELS, model, sr, audio, card):
+    """(b) of phase 15: request 0 in 2048-sample chunks (no B1) against
+    the offline forward shifted by the delay, past the margin of
+    ``tests/test_streaming.py``'s hybrid case (the clip head: offline
+    reflect-pads, the stream starts from zeros; the GRU state's decay):
+    median relative error < 0.02; chunk median and p80;
+    ``process_file_scan`` (its CUDA graph) against ``process_file`` on
+    the same audio, ms per chunk of each."""
+    n = HYBRID_STREAM_CHUNKS * CHUNK
+    signal = audio[0, :n].astype(np.float32)
+    with torch.inference_mode():
+        off = model(torch.tensor(signal[None, :, None], device=sr.device)
+                    )[0, :, 0].cpu().numpy()
+    sr.process_file(signal[:4 * CHUNK])     # warm-up
+    sr.reset()
+    for k in KERNELS:
+        k.launches = 0
+    outs, chunk_ms = [], []
+    for i in range(0, n, CHUNK):
+        t0 = time.perf_counter()
+        out = sr.forward(signal[i:i + CHUNK].reshape(1, -1, 1))
+        torch.cuda.synchronize()
+        chunk_ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out[0, :, 0])
+    launches = {k.name: k.launches for k in KERNELS}
+    check(not any(launches.values()), f"hybrid stream: {launches}")
+    y = torch.cat(outs).cpu().numpy()
+    check(bool(np.isfinite(y).all()), "hybrid stream: output not finite")
+    d = sr.total_delay_samples()
+    m = 2 * d + sr.cfg.mel_n_fft + 4096
+    check(m + 256 < n, f"hybrid: margin {m} >= {n}")
+    a, b = off[m - d:n - d - 256], y[m:n - 256]
+    rel = float(np.median(np.abs(a - b)) / (np.abs(a).mean() + 1e-9))
+    check(rel < 0.02, f"hybrid stream vs offline: {rel}")
+    sr.process_file_scan(signal[:4 * CHUNK])    # captures the graph
+    t0 = time.perf_counter()
+    scan = sr.process_file_scan(signal)
+    scan_ms = (time.perf_counter() - t0) * 1e3 / HYBRID_STREAM_CHUNKS
+    t0 = time.perf_counter()
+    eager = sr.process_file(signal)
+    eager_ms = (time.perf_counter() - t0) * 1e3 / HYBRID_STREAM_CHUNKS
+    scan_err = float(np.abs(scan - eager).max())
+    check(scan_err <= EXPORT_TOL, f"hybrid scan vs file: {scan_err}")
+    res = {"chunk": CHUNK, "chunks": len(chunk_ms), "delay_samples": d,
+           "margin_samples": m, "median_rel_err": rel, "launches": launches,
+           "chunk_ms_median": statistics.median(chunk_ms),
+           "chunk_ms_p80": float(np.percentile(chunk_ms, 80)),
+           "chunk_ms_of_audio": CHUNK / 44.1,
+           "scan_ms_per_chunk": scan_ms, "file_ms_per_chunk": eager_ms,
+           "scan_vs_file_max_abs_err": scan_err}
+    emit({"phase": "hybrid", "step": "stream", "card": card, **res})
+    return res
+
+
+def hybrid_native(torch, np, audio, card, hyb, v3, device="cuda"):
+    """(d) of phase 15: ``forward.pt2`` of :func:`hybrid_export`, reloaded,
+    against the live step over ``SERIALIZE_CHUNKS`` chunks; its package
+    (compiled by :func:`a6_v3_export`'s subprocess after ``v3``'s) served
+    by the C++ host over ``NATIVE_VC_BLOCKS`` blocks of 2048: every block
+    and the last caches (the mel context and the GRU states among them)
+    against ``StreamingRAVE.forward`` within ``EXPORT_TOL``; p50/p80 block
+    time."""
+    from rave_tpu_torch.export import native
+
+    sr, exp = hyb["stream"], hyb["dir"]
+    prog = torch.export.load(exp / "forward.pt2").module()
+    carry = [c.clone() for c in sr.init_caches]
+    sr.reset()
+    err = 0.0
+    with torch.no_grad():
+        for i in range(0, SERIALIZE_CHUNKS * CHUNK, CHUNK):
+            c = torch.tensor(audio[:1, i:i + CHUNK, None],
+                             dtype=torch.float32, device=device)
+            yp, carry = prog(carry, c)
+            err = max(err, float((yp - sr.forward(c)).abs().max()))
+    check(err <= EXPORT_TOL, f"hybrid forward.pt2 vs live: {err}")
+    del prog
+    compiled = compiled_packages(v3)[exp]
+    host = native.build_host(device)
+    n = NATIVE_VC_BLOCKS
+    signal = audio[0, :n * CHUNK].astype(np.float32)
+    res, y, carry, _ = serve_native(torch, np, exp, "forward",
+                                    signal.reshape(n, CHUNK), host, device,
+                                    compiled=compiled)
+    want = sr.process_file(signal).reshape(n, CHUNK)
+    live = np.concatenate([c.reshape(-1).cpu().numpy() for c in sr.caches])
+    res.update(hold_host(np, "hybrid forward", y, want, carry, live))
+    ranks = sorted({c.dim() for c in sr.caches})
+    res.update(serialize_max_abs_err=err, serialize_s=hyb["serialize_s"],
+               n_caches=len(sr.caches), cache_ranks=ranks,
+               compiled_in_background=True)
+    emit({"phase": "hybrid", "step": "native", "card": card,
+          "chunk": CHUNK, "chunk_ms_of_audio": CHUNK / 44.1, **res})
+    shutil.rmtree(exp)
+    return {k: res[k] for k in ("compile_s", "block_ms_p50", "block_ms_p80",
+                                "max_abs_err_vs_program",
+                                "serialize_max_abs_err")}
+
+
+def hybrid_losses(torch, np, card, device="cuda"):
+    """(e) of phase 15: the ported distances of 4 x 65536 synthetic voices
+    against 4 others on the card and on the CPU, each term within
+    ``LOSS_RTOL`` relative: the mel ``audio_distance_v1`` (128 mels),
+    ``spectral_distance`` (2048, 128 mels, L1 and L2),
+    ``encodec_audio_distance`` and the weighted instantaneous-frequency
+    distance (default scales), this one on voices with a silent head of
+    1025 samples: frame 0 of a reflect-padded STFT is symmetric, its
+    spectrum real, and a phase step there wraps to +pi or -pi by the
+    sign of a rounding-level imaginary part (``tests/
+    test_torch_loss_library.py``)."""
+    from rave_tpu_torch.ops import losses as L
+
+    x = voices(np, 4, 65536, SEED + 8)
+    y = voices(np, 4, 65536, SEED + 9)
+    xh, yh = x.copy(), y.copy()
+    xh[:, :2048 // 2 + 1] = yh[:, :2048 // 2 + 1] = 0
+
+    def terms(dev):
+        t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
+        with torch.no_grad():
+            out = {"audio_distance_v1_mel": L.audio_distance_v1(
+                t(x), t(y), num_mels=128),
+                "spectral_distance_mel": L.spectral_distance(
+                    t(x), t(y), 2048, norms=("L1", "L2"), mel=128)}
+            for k, v in L.encodec_audio_distance(t(x), t(y)).items():
+                out[f"encodec_{k}"] = v
+            for k, v in L.weighted_instantaneous_spectral_distance(
+                    t(xh), t(yh), weighted=True).items():
+                out[f"instantaneous_{k}"] = v
+        return {k: float(v) for k, v in out.items()}
+
+    card_v, cpu_v = terms(device), terms("cpu")
+    rel = {k: abs(card_v[k] - cpu_v[k]) / max(abs(cpu_v[k]), 1e-12)
+           for k in cpu_v}
+    check(all(np.isfinite(v) and v > 0 for v in card_v.values()),
+          f"hybrid losses: {card_v}")
+    check(max(rel.values()) <= LOSS_RTOL, f"losses card vs cpu: {rel}")
+    res = {"batch": [4, 65536], "card": card_v, "cpu": cpu_v,
+           "rel_err": rel, "rtol": LOSS_RTOL}
+    emit({"phase": "hybrid", "step": "losses", "card_name": card, **res})
+    return res
+
+
+def phase_hybrid(torch, np, KERNELS, audio, card, hyb, v3, device="cuda"):
+    """Phase 15 (see the module docstring), ``hyb`` the handle of
+    :func:`hybrid_export`, ``v3`` that of :func:`a6_v3_export`.  Returns
+    the launches of every kernel per hybrid forward and per D and G
+    step."""
+    counts = lambda: {k.name: k.launches for k in KERNELS}  # noqa: E731
+
+    def reset():
+        for k in KERNELS:
+            k.launches = 0
+
+    t_phase = time.perf_counter()
+    # (a) offline
+    stack = ["hybrid"]
+    cfg, model, state, _, served = a6_serve(
+        torch, np, KERNELS, stack, HYBRID_OVER, audio, HYBRID_B1, card,
+        device, names=("residual_unit", "fft", "RNN"), phase="hybrid")
+    check(all(torch.equal(state[k], hyb["state"][k]) for k in state),
+          "hybrid: the stream's weights differ from the offline model's")
+    x = torch.tensor(audio[:, :, None], dtype=torch.float32, device=device)
+    with torch.inference_mode():
+        z = model.encode(x).transpose(1, 2)
+        fns = {"mel_front_end": lambda: model.mel_frontend(x[..., 0]),
+               "decoder_gru": lambda: model.decoder.gru(z)}
+        parts = {k: device_ms(torch, f, iters=5) for k, f in fns.items()}
+        # CUDA events beside the profiler, which once recorded no kernel
+        # of the mel front end late in a whole run (PERF.md section 7)
+        event_ms = {k: cuda_ms(torch, f, iters=20) for k, f in fns.items()}
+    total_ms = served["profile"]["device_ms"]
+    emit({"phase": "hybrid", "step": "offline_parts", "card": card,
+          "device_ms": parts, "event_ms": event_ms,
+          "forward_device_ms": total_ms,
+          "share": {k: v / total_ms for k, v in parts.items()}})
+    # (b) streaming
+    stream = hybrid_stream(torch, np, KERNELS, model, hyb["stream"], audio,
+                           card)
+    del model
+    # (c) training
+    train = a6_train(torch, np, KERNELS, stack, HYBRID_OVER, HYBRID_B1,
+                     counts, reset, device)
+    pair = a6_pair(torch, np, stack, HYBRID_OVER, counts, reset, device)
+    check("grad_norm_gru" in pair["rel_err"],
+          f"hybrid pair: no GRU gradient norm in {sorted(pair['rel_err'])}")
+    emit({"phase": "hybrid", "step": "train", "card": card,
+          "config": "hybrid", **train, "pair": pair})
+    # (d) export and the C++ host
+    native = hybrid_native(torch, np, audio, card, hyb, v3, device)
+    # (e) the ported losses
+    losses = hybrid_losses(torch, np, card, device)
+    out = {"forward": served["launches"],
+           "train_step": {c["kind"]: train["launches_per_step"]
+                          for c in train["warmup_cycle"]}}
+    emit({"phase": "hybrid", "card": card, "launches": out,
+          "batch_ms": served["batch_ms"],
+          "plain_batch_ms": served.get("plain_batch_ms"),
+          "chunk_ms_median": stream["chunk_ms_median"],
+          "d_step_ms": train["d_step_ms"], "g_step_ms": train["g_step_ms"],
+          "native": native, "losses_max_rel_err": max(
+              losses["rel_err"].values()),
+          "phase_seconds": time.perf_counter() - t_phase})
+    return out
 
 
 def main() -> int:
@@ -3675,6 +3987,12 @@ def main() -> int:
                     ("train_discrete", TRAIN_BATCH)):
         for d in (1, 3, 9):
             per_shape[(path, B, T0 // 16, 384, d)] = 2
+    # hybrid: its mel encoder's fusable units (dilation 1; C = 128 at 512
+    # and 256 at 256 frames of 128 samples), once each per forward and
+    # per train step; its decoder is v2's (the v2 shapes, once each)
+    for path, B in (("offline_hybrid", BATCH), ("train_hybrid", TRAIN_BATCH)):
+        for C, T in ((128, SAMPLES // 256), (256, SAMPLES // 512)):
+            per_shape[(path, B, T, C, 1)] = 1
 
     # 2. kernels vs plain versions on the card
     max_err, shapes = phase_kernels(torch, ru, per_shape)
@@ -3785,11 +4103,14 @@ def main() -> int:
     emit({"phase": "profile", "offline_batch": prof_offline,
           "streaming_16_chunks": prof_stream})
 
-    # 14(d)'s v3 package compiles in a niced subprocess from here on
-    v3 = a6_v3_export(torch)
+    # 14(d)'s v3 package, then 15(d)'s hybrid one, compile in a niced
+    # subprocess from here on
+    hyb = hybrid_export(torch)
+    v3 = a6_v3_export(torch, after=[hyb["dir"]])
     try:
         return _phases(torch, np, KERNELS, smi, kind, model, x, audio,
-                       launches, max_err, shapes, ci1_err, ci1_shapes, v3)
+                       launches, max_err, shapes, ci1_err, ci1_shapes, v3,
+                       hyb)
     finally:
         if v3["compile"].poll() is None:
             v3["compile"].kill()
@@ -3797,8 +4118,8 @@ def main() -> int:
 
 
 def _phases(torch, np, KERNELS, smi, kind, model, x, audio, launches,
-            max_err, shapes, ci1_err, ci1_shapes, v3) -> int:
-    """Phases 6-14 and the summary (see :func:`main`)."""
+            max_err, shapes, ci1_err, ci1_shapes, v3, hyb) -> int:
+    """Phases 6-15 and the summary (see :func:`main`)."""
     # 6. the v2_fork train step
     g_launches = phase_train(torch, np, KERNELS)
 
@@ -3839,10 +4160,22 @@ def _phases(torch, np, KERNELS, smi, kind, model, x, audio, launches,
     # spherical heads; the v3 native package
     a6 = phase_a6(torch, np, KERNELS, audio, smi, v3)
 
-    # 14. summary
+    # 15. the hybrid preset: mel front end, GRU layers, the loss library
+    hybrid = phase_hybrid(torch, np, KERNELS, audio, smi, hyb, v3)
+
+    # summary
     def total(key, path="offline_v2"):
-        return sum(s[key] * s["launches_per_call"] for s in shapes
-                   if s["path"] == path)
+        t = sum(s[key] * s["launches_per_call"] for s in shapes
+                if s["path"] == path)
+        if path.endswith("_hybrid"):
+            # its decoder's units: the v2 path's, once each
+            t += total(key, path.replace("hybrid", "v2")) / 2
+        return t
+
+    def hybrid_launches(name):
+        return {"launches_hybrid_forward": hybrid["forward"][name],
+                "launches_hybrid_train_step": {
+                    k: v[name] for k, v in hybrid["train_step"].items()}}
 
     src = "rave_tpu_torch/csrc/residual_unit.cu"
     kernels = [{
@@ -3872,10 +4205,12 @@ def _phases(torch, np, KERNELS, smi, kind, model, x, audio, launches,
         "launches_v3_train_step": {k: v["residual_unit"] for k, v in
                                    dv3["v3_train_step"].items()},
         **a6_launches(a6, "residual_unit"),
+        **hybrid_launches("residual_unit"),
         **{path: {k: total(k, path) for k in (
             "ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms",
             "bound_ms_f32")}
-           for path in ("train_v2", "offline_discrete", "train_discrete")}}]
+           for path in ("train_v2", "offline_discrete", "train_discrete",
+                        "offline_hybrid", "train_hybrid")}}]
     # B2/B3: one launch per head and G step; the plain twin is one
     # PyTorch call (F.conv1d, conv1d_input), so it is the library time
     for name, key, line, launches in (
@@ -3905,6 +4240,7 @@ def _phases(torch, np, KERNELS, smi, kind, model, x, audio, launches,
             "launches_v3_train_step": {k: v[name] for k, v in
                                        dv3["v3_train_step"].items()},
             **a6_launches(a6, name),
+            **hybrid_launches(name),
             "library_ms": per("plain_ms")})
     print(smi, flush=True)
     emit({"kernels": kernels})

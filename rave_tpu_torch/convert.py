@@ -18,7 +18,12 @@ Flax names modules by type in construction order, and binds a
 ``encoder`` sit ``Conv1d_0..`` and ``DilatedUnit_0..`` directly, each
 ``DilatedUnit_i`` holding ``Conv1d_0`` (dilated) and ``Conv1d_1`` (1x1).
 ``Activation_i`` (a Snake ``alpha``; a leaky ReLU owns nothing) and
-``AdaIN_i`` (state in the ``adain`` collection) are counted the same way.
+``AdaIN_i`` (state in the ``adain`` collection) are counted the same way,
+and so is ``GRULayer_i``, whose flax cells ``cell{l}/{ir,iz,in,hr,hz,hn}``
+(Dense kernels ``(in, out)``; ``hr`` and ``hz`` without bias) become
+layer ``l``'s gate stacks ``weight_ih{l}`` ``[ir|iz|in]`` and
+``weight_hh{l}`` ``[hr|hz|hn]`` ``(3 dim, dim)``, ``bias_ih{l}`` and
+``bias_hn{l}``.  The mel front end has no parameters.
 The noise generators and the v1 blocks (``UpsampleLayer``,
 ``ResidualStack`` > ``ResidualBlock`` > ``ResidualLayer``) have scopes
 of their own, like ``DilatedUnit``; EncoderV1's ``BatchNorm_i`` takes
@@ -56,8 +61,9 @@ import torch
 from torch import nn
 
 from .models.blocks import (Activation, AdaIN, BatchNorm, DilatedUnit,
-                            NoiseGeneratorV1, NoiseGeneratorV2, ResidualBlock,
-                            ResidualLayer, ResidualStack, UpsampleLayer)
+                            GRULayer, NoiseGeneratorV1, NoiseGeneratorV2,
+                            ResidualBlock, ResidualLayer, ResidualStack,
+                            UpsampleLayer)
 from .models.discriminators import WNConv
 from .models.latent import DiscreteHead
 from .models.speaker import CohortNorm
@@ -66,7 +72,13 @@ from .ops.conv import Conv1d, ConvTranspose1d
 # modules with a flax scope of their own, whose children the loader walks
 _SCOPES = (DilatedUnit, NoiseGeneratorV1, NoiseGeneratorV2, ResidualBlock,
            ResidualLayer, ResidualStack, UpsampleLayer)
-_NAMED = (Conv1d, ConvTranspose1d, Activation, AdaIN, BatchNorm) + _SCOPES
+_NAMED = (Conv1d, ConvTranspose1d, Activation, AdaIN, BatchNorm,
+          GRULayer) + _SCOPES
+# flax GRUCell's Dense modules, in the port's row order of each gate stack
+_GRU_GATES = (("weight_ih", ("ir", "iz", "in"), "kernel"),
+              ("weight_hh", ("hr", "hz", "hn"), "kernel"),
+              ("bias_ih", ("ir", "iz", "in"), "bias"),
+              ("bias_hn", ("hn",), "bias"))
 
 
 def _flax_children(module: nn.Module, counts=None) -> Iterator:
@@ -131,14 +143,36 @@ class _Loader:
              name: str, layout=lambda a: a) -> None:
         if name not in tree:
             raise KeyError(f"{path}{name} missing from the flax tree")
-        value = layout(np.asarray(tree[name]))
+        self.put(tensor, layout(np.asarray(tree[name])), [path + name])
+
+    def put(self, tensor: torch.Tensor, value: np.ndarray,
+            leaves: list) -> None:
+        """Copy ``value``, made of the flax ``leaves`` (full paths), into
+        ``tensor``."""
         if tuple(tensor.shape) != value.shape:
-            raise ValueError(f"{path}{name}: flax {value.shape} does not "
+            raise ValueError(f"{leaves}: flax {value.shape} does not "
                              f"fit {tuple(tensor.shape)}")
         with torch.no_grad():
             tensor.copy_(torch.from_numpy(np.array(value)))
-        self.used.add(path + name)
+        self.used.update(leaves)
         self.filled.add(id(tensor))
+
+    def gru(self, gru: GRULayer, tree: Mapping, path: str) -> None:
+        """Each flax cell of a ``GRULayer`` into its layer's gate stacks
+        (a Dense kernel ``(in, out)`` becomes rows ``(out, in)``)."""
+        for layer in range(gru.num_layers):
+            cell, cell_path = tree.get(f"cell{layer}"), f"{path}cell{layer}/"
+            for name, gates, leaf in _GRU_GATES:
+                missing = [g for g in gates if leaf not in (cell or {}).get(
+                    g, {})]
+                if missing:
+                    raise KeyError(f"{cell_path}{missing[0]}/{leaf} missing "
+                                   "from the flax params")
+                arrays = [np.asarray(cell[g][leaf]) for g in gates]
+                value = np.concatenate(
+                    [a.T for a in arrays] if leaf == "kernel" else arrays)
+                self.put(getattr(gru, f"{name}{layer}"), value,
+                         [f"{cell_path}{g}/{leaf}" for g in gates])
 
     def conv(self, conv: nn.Module, tree: Mapping, path: str) -> None:
         try:
@@ -166,6 +200,8 @@ class _Loader:
                            f"{stats_path}{name}/")
             elif isinstance(child, Activation):
                 self.leaf(child.alpha, sub, sub_path, "alpha")
+            elif isinstance(child, GRULayer):
+                self.gru(child, sub, sub_path)
             elif isinstance(child, BatchNorm):
                 self.leaf(child.weight, sub, sub_path, "scale")
                 self.leaf(child.bias, sub, sub_path, "bias")

@@ -19,9 +19,13 @@ statistics and its ``learn_x``/``learn_y`` flags are carried after the
 caches (:class:`~rave_tpu_torch.models.blocks.AdaIN`), so the exported
 steps and the CUDA-graph replay read the flags the host sets between
 chunks (``set_learn_source`` / ``set_learn_target`` / ``reset_source`` /
-``reset_target``).  The random draws of a chunk (the noise branch's
-uniform noise, the normal augmentation channels that ``decode`` inserts
-into a latent without them, the discrete head's in ``encode``) are drawn
+``reset_target``).  The hybrid preset's mel front end carries its
+sample context and each GRU layer its hidden state as caches like the
+convs' (the stream of hybrid, which the upstream reference cannot
+stream, starts its clip from zeros where offline reflect-pads).  The
+random draws of a chunk (the noise branch's uniform noise, the normal
+augmentation channels that ``decode`` inserts into a latent without
+them, the discrete head's in ``encode``) are drawn
 once per stream from ``seed`` and kept beside the caches
 (:class:`~rave_tpu_torch.ops.conv.StreamDraw`), so that every chunk,
 the CUDA graph and the exported programs reuse the same ones, as the
@@ -73,6 +77,11 @@ class StreamingRAVE:
             raise ValueError(
                 f"chunk_size must be a multiple of the total stride "
                 f"{cfg.total_ratio()}, got {chunk_size}")
+        if cfg.use_mel_encoder and chunk_size % cfg.mel_hop:
+            # the mel front end's frames must land on chunk boundaries
+            raise ValueError(
+                f"hybrid streaming needs chunk_size to be a multiple of "
+                f"mel_hop {cfg.mel_hop}, got {chunk_size}")
         if stereo and cfg.adain:
             # AdaIN keeps per-batch-slot statistics, which the stereo
             # batch duplication would mix (as in the JAX package)

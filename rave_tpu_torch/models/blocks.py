@@ -1,16 +1,17 @@
 """Building blocks: activations (leaky ReLU, Snake), AdaIN, BatchNorm,
-dilated residual units, EncoderV2, GeneratorV2 (with its filtered-noise
-branch), and the v1 family: residual layers, blocks and stacks, the
-upsampler, EncoderV1, NoiseGeneratorV1, GeneratorV1.
+the GRU layer, dilated residual units, EncoderV2, GeneratorV2 (with its
+filtered-noise branch), the v1 family: residual layers, blocks and
+stacks, the upsampler, EncoderV1, NoiseGeneratorV1, GeneratorV1; and the
+hybrid preset's mel front end.
 
-Port of ``rave_tpu/models/blocks.py`` (all but the mel front end and the
-GRU layer, ROADMAP A7).  Layout is
-channels-first ``(B, C, T)``.  Every block threads the static delay
-algebra of :mod:`rave_tpu_torch.ops.delay`; streaming state lives in the
+Port of ``rave_tpu/models/blocks.py``.  Layout is channels-first
+``(B, C, T)``.  Every block threads the static delay algebra of
+:mod:`rave_tpu_torch.ops.delay`; streaming state lives in the
 :class:`~rave_tpu_torch.ops.conv.Cached` modules (AdaIN's statistics and
-controls too, and the noise generators' uniform draw, fixed over a
-stream).  Modules are registered in the order the JAX package
-creates them, which :mod:`rave_tpu_torch.convert` relies on.
+controls too, the noise generators' uniform draw, fixed over a stream,
+the GRU's hidden states and the mel front end's sample context).
+Modules are registered in the order the JAX package creates them, which
+:mod:`rave_tpu_torch.convert` relies on.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -27,6 +29,7 @@ from ..ops.conv import (Cached, Conv1d, ConvTranspose1d, Delay, StreamDraw,
 from ..ops.delay import get_padding, plan_conv, plan_conv_transpose
 from ..ops.kernels.residual_unit import residual_unit
 from ..ops.losses import amp_to_impulse_response, fft_convolve, mod_sigmoid
+from ..ops.stft import hann_window, mel_matrix, stft
 
 
 def normalize_dilations(dilations, ratios):
@@ -197,6 +200,86 @@ class BatchNorm(nn.Module):
         return (x - mu.view(shape)) * mul.view(shape) + self.bias.view(shape)
 
 
+class GRULayer(Cached):
+    """``num_layers`` stacked GRUs of width ``dim`` over the time axis of
+    ``(B, dim, T)``: flax's ``nn.RNN(nn.GRUCell)`` per layer, from a zero
+    state offline, from the carried state ``(B, num_layers, dim)`` (this
+    module's cache) in a stream.  Causal, so it adds no delay.
+
+    Layer ``l`` keeps flax's cell: ``weight_ih{l}`` ``[ir|iz|in]``
+    ``(3 dim, dim)`` with ``bias_ih{l}``, ``weight_hh{l}`` ``[hr|hz|hn]``
+    with only ``bias_hn{l}`` ``(dim,)`` (flax's ``hr`` and ``hz`` have no
+    bias), so that ``r = sigmoid(x W_ir + b_ir + h W_hr)``, ``z`` alike,
+    ``n = tanh(x W_in + b_in + r (h W_hn + b_hn))``, ``h' = (1 - z) n
+    + z h``.  That is ``torch.gru`` (cuDNN on the card) with a hidden bias
+    ``[0|0|b_hn]``, which runs offline and in training; a stream steps
+    the same cell by hand (:meth:`cell`), which ``torch.export``,
+    AOTInductor and CUDA-graph capture take as plain matmuls.
+    Initialised as flax's cell: input kernels normal with std
+    ``1/sqrt(dim)``, recurrent kernels orthogonal per gate, biases zero.
+    """
+
+    def __init__(self, dim: int, num_layers: int = 1,
+                 ss: StreamSetup = StreamSetup()):
+        super().__init__()
+        self.dim, self.num_layers, self.ss = dim, num_layers, ss
+        for layer in range(num_layers):
+            w_hh = torch.empty(3 * dim, dim)
+            for g in range(3):
+                nn.init.orthogonal_(w_hh[g * dim:(g + 1) * dim])
+            self.register_parameter(f"weight_ih{layer}", nn.Parameter(
+                torch.randn(3 * dim, dim) / dim ** 0.5))
+            self.register_parameter(f"weight_hh{layer}", nn.Parameter(w_hh))
+            self.register_parameter(f"bias_ih{layer}", nn.Parameter(
+                torch.zeros(3 * dim)))
+            self.register_parameter(f"bias_hn{layer}", nn.Parameter(
+                torch.zeros(dim)))
+
+    def weights(self, layer: int) -> tuple:
+        """``(weight_ih, weight_hh, bias_ih, bias_hh)`` of ``layer``, the
+        hidden bias ``[0|0|b_hn]``."""
+        b_hn = getattr(self, f"bias_hn{layer}")
+        return (getattr(self, f"weight_ih{layer}"),
+                getattr(self, f"weight_hh{layer}"),
+                getattr(self, f"bias_ih{layer}"),
+                torch.cat([b_hn.new_zeros(2 * self.dim), b_hn]))
+
+    def cell(self, x: torch.Tensor, h: torch.Tensor,
+             layer: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Layer ``layer`` over ``x`` ``(B, T, dim)`` from the state ``h``
+        ``(B, dim)``, one frame at a time: ``(outputs, last state)``."""
+        w_ih, w_hh, b_ih, b_hh = self.weights(layer)
+        gi = F.linear(x, w_ih, b_ih)
+        outs = []
+        for t in range(x.shape[1]):
+            gh = F.linear(h, w_hh, b_hh)
+            i_r, i_z, i_n = gi[:, t].chunk(3, dim=-1)
+            h_r, h_z, h_n = gh.chunk(3, dim=-1)
+            r = torch.sigmoid(i_r + h_r)
+            z = torch.sigmoid(i_z + h_z)
+            n = torch.tanh(i_n + r * h_n)
+            h = (1 - z) * n + z * h
+            outs.append(h)
+        return torch.stack(outs, dim=1), h
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        seq = x.transpose(1, 2)
+        if self.ss.streaming:
+            state = self._zeros_cache(x, self.num_layers, self.dim)
+            last = []
+            for layer in range(self.num_layers):
+                seq, h = self.cell(seq, state[:, layer], layer)
+                last.append(h)
+            self.cache = torch.stack(last, dim=1)
+            return seq.transpose(1, 2)
+        h0 = x.new_zeros(self.num_layers, x.shape[0], self.dim)
+        flat = [w for layer in range(self.num_layers)
+                for w in self.weights(layer)]
+        out, _ = torch.gru(seq.contiguous(), h0, flat, True,
+                           self.num_layers, 0.0, self.training, False, True)
+        return out.transpose(1, 2)
+
+
 class DilatedUnit(nn.Module):
     """act -> dilated conv(k) -> act -> 1x1 conv.  Stride 1; own delay =
     the dilated conv's right pad."""
@@ -335,7 +418,7 @@ class EncoderV2(nn.Module):
                  dilations: Sequence, keep_dim: bool = False,
                  activation: str = "leaky_relu", weight_norm: bool = True,
                  adain: bool = False, fused: bool = False, in_delay: int = 0,
-                 ss: StreamSetup = StreamSetup()):
+                 gru_layers: int = 0, ss: StreamSetup = StreamSetup()):
         super().__init__()
         self.capacity, self.ratios = capacity, list(ratios)
         self.adain = adain
@@ -364,6 +447,7 @@ class EncoderV2(nn.Module):
                            weight_norm=weight_norm, ss=ss)))
             ch = kw.get("features", ch)
         self.layers = nn.ModuleList(layers)
+        self.gru = GRULayer(ch, gru_layers, ss) if gru_layers else None
 
     def _walk(self):
         """``[(kind, kwargs)]`` in build order, and the final delay."""
@@ -401,14 +485,15 @@ class EncoderV2(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.layers:
             x = layer(x)
-        return x
+        return x if self.gru is None else self.gru(x)
 
 
 class GeneratorV2(nn.Module):
-    """Mirror decoder: conv, transposed-conv upsamplers with residual
-    units, amplitude modulation, with ``use_noise`` the filtered noise
-    of :class:`NoiseGeneratorV2` (fed the last activation, added after
-    the modulation), tanh."""
+    """Mirror decoder: with ``gru_layers`` a :class:`GRULayer` on the
+    latent, then conv, transposed-conv upsamplers with residual units,
+    amplitude modulation, with ``use_noise`` the filtered noise of
+    :class:`NoiseGeneratorV2` (fed the last activation, added after the
+    modulation), tanh."""
 
     def __init__(self, data_size: int, capacity: int, ratios: Sequence[int],
                  latent_size: int, kernel_size: int, dilations: Sequence,
@@ -418,7 +503,7 @@ class GeneratorV2(nn.Module):
                  noise_bands: int = 5,
                  activation: str = "leaky_relu", weight_norm: bool = True,
                  adain: bool = False, fused: bool = False,
-                 ss: StreamSetup = StreamSetup()):
+                 gru_layers: int = 0, ss: StreamSetup = StreamSetup()):
         super().__init__()
         self.data_size, self.capacity = data_size, capacity
         self.ratios, self.kernel_size = list(ratios), kernel_size
@@ -427,6 +512,8 @@ class GeneratorV2(nn.Module):
         self.ss = ss
 
         dilations_list, rev_ratios, num_channels = self._plan()
+        self.gru = (GRULayer(latent_size, gru_layers, ss) if gru_layers
+                    else None)
         layers = [Conv1d(latent_size, num_channels, kernel_size,
                          weight_norm=weight_norm, ss=ss)]
         d = conv_delay(kernel_size, 1, 1, ss.mode)
@@ -481,6 +568,8 @@ class GeneratorV2(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``noise``/``generator``: the noise branch's draw (see
         :class:`NoiseGeneratorV2`), unused without ``use_noise``."""
+        if self.gru is not None:
+            x = self.gru(x)
         for layer in self.layers[:-1]:
             x = layer(x)
         act, conv = self.layers[-1]
@@ -681,3 +770,65 @@ class GeneratorV1(nn.Module):
             gate = torch.as_tensor(warmed_up, dtype=y.dtype, device=y.device)
             y = y + gate * self.noise(x, noise, generator)
         return y
+
+
+# ----------------------------------------------------------------------
+# the hybrid preset's mel-spectrogram front end (streaming-capable)
+# ----------------------------------------------------------------------
+
+def mel_front_delay(n_fft: int, hop: int) -> int:
+    """Streaming delay of the centred mel front end in mel frames: a frame
+    centred at ``k * hop`` needs ``n_fft - n_fft // 2`` samples after its
+    centre, and the chunk itself gives one hop of them."""
+    lookahead = n_fft - n_fft // 2
+    return -(-lookahead // hop) - 1
+
+
+class MelFrontEnd(Cached):
+    """Audio ``(B, T)`` -> the log1p power mel spectrogram ``(B, n_mels,
+    T // hop)``: periodic Hann, ``normalized`` (divided by the window's
+    L2 norm) power spectrum, torchaudio's htk mel basis without norm,
+    ``log1p``; no parameters (the basis is a constant).
+
+    Offline the signal is reflect-padded by ``n_fft // 2`` on both sides
+    and frames ``[0, T // hop)`` are kept.  In a stream the module's
+    cache is the last ``D * hop + n_fft // 2`` samples (``D`` =
+    :func:`mel_front_delay`), so a chunk gives ``chunk // hop`` frames,
+    offline frame ``k`` arriving as streamed frame ``k + D``; the encoder
+    takes ``D`` as its ``in_delay``.  The one difference is the clip head:
+    offline reflect-pads the first ``n_fft // 2`` samples, a stream
+    starts from zeros.
+    """
+
+    def __init__(self, n_fft: int, hop: int, n_mels: int, sample_rate: int,
+                 ss: StreamSetup = StreamSetup()):
+        super().__init__()
+        self.n_fft, self.hop, self.n_mels = n_fft, hop, n_mels
+        self.sample_rate, self.ss = sample_rate, ss
+        self.energy = float(np.sum(hann_window(n_fft).astype(np.float64)
+                                   ** 2))
+
+    @property
+    def out_delay(self) -> int:
+        return (mel_front_delay(self.n_fft, self.hop) if self.ss.streaming
+                else 0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n_fft, hop = self.n_fft, self.hop
+        frames = x.shape[1] // hop
+        if self.ss.streaming:
+            ctx = mel_front_delay(n_fft, hop) * hop + n_fft // 2
+            if self.cache is None:
+                self.cache = x.new_zeros((x.shape[0], ctx))
+            buf = torch.cat([self.cache, x], dim=1)
+            self.cache = buf[:, buf.shape[1] - ctx:]
+            spec = stft(buf, n_fft, hop, center=False)
+        else:
+            spec = stft(x, n_fft, hop)
+        spec = spec[:, :frames]
+        # normalized: the power over the window's energy (a real division;
+        # a complex one has no AOTInductor C shim)
+        power = (spec.real.square() + spec.imag.square()) / self.energy
+        mel = power @ mel_matrix(self.sample_rate, n_fft, self.n_mels,
+                                 x.device, htk=True, norm=None).T
+        return torch.log1p(mel).transpose(1, 2)

@@ -1,15 +1,18 @@
 """RAVE: PQMF + encoder + latent head + generator, and the voice-conversion
 fork's speaker-conditioned variant.
 
-Port of ``rave_tpu/models/rave.py`` for every preset but ``hybrid``:
+Port of ``rave_tpu/models/rave.py`` for every preset:
 ``v1`` / ``onnx`` / ``raspberry`` (EncoderV1, GeneratorV1 and its noise
 branch), the v2 family (``v2``, ``v2_fork``, ``discrete``, ``v3``,
-``discrete_v3``; the ``noise`` toggle adds GeneratorV2's noise branch)
-and the ``wasserstein`` and ``spherical`` heads.  ``encode`` takes the
-variational mean (deterministic), the raw latent of the Wasserstein
-head, the normalised latent of the spherical head, the residual-VQ
-quantized latent of the discrete head (its noise-augmentation channels
-appended) or, speaker-conditioned, the raw content latent with the
+``discrete_v3``; the ``noise`` toggle adds GeneratorV2's noise branch),
+``hybrid`` (the encoder reads the log1p mel spectrogram of the audio,
+:class:`~rave_tpu_torch.models.blocks.MelFrontEnd`, with its own ratios
+and dilations; GRU layers on the encoder's output and the decoder's
+input) and the ``wasserstein`` and ``spherical`` heads.  ``encode``
+takes the variational mean (deterministic), the raw latent of the
+Wasserstein head, the normalised latent of the spherical head, the
+residual-VQ quantized latent of the discrete head (its noise-augmentation
+channels appended) or, speaker-conditioned, the raw content latent with the
 frozen speaker embedding appended; ``encode_indices`` /
 ``decode_indices`` are the discrete head's integer codes ``(B,
 n_quantizers, T_z)``; ``decode`` re-samples the noise-augmentation
@@ -51,7 +54,7 @@ from ..ops.conv import StreamDraw, StreamSetup
 from ..ops.pitch import pitch_feature
 from ..ops.pqmf import PQMF, _pqmf_kernels
 from .blocks import (AdaIN, BatchNorm, EncoderV1, EncoderV2, GeneratorV1,
-                     GeneratorV2)
+                     GeneratorV2, MelFrontEnd, mel_front_delay)
 from .latent import (DiscreteHead, SphericalHead, VariationalHead,
                      WassersteinHead)
 from .quantization import Sampler, sample_vectors
@@ -63,16 +66,10 @@ HEADS = ("variational", "wasserstein", "spherical", "discrete")
 
 def check_supported(cfg: RAVEConfig) -> None:
     """Raise ``NotImplementedError`` for options this slice lacks."""
-    unsupported = [
-        (cfg.use_mel_encoder or cfg.encoder_gru_layers
-         or cfg.decoder_gru_layers, "the mel front end and GRU layers", "A7"),
-        (cfg.compute_dtype != "float32",
-         f"compute_dtype {cfg.compute_dtype!r}", "A10"),
-    ]
-    for bad, what, item in unsupported:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported to rave_tpu_torch yet (ROADMAP {item})")
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"compute_dtype {cfg.compute_dtype!r} is not ported to "
+            "rave_tpu_torch yet (ROADMAP A10)")
     if cfg.latent_head not in HEADS:
         raise ValueError(f"unknown latent head {cfg.latent_head!r}")
     for part in ("encoder_version", "generator_version"):
@@ -103,8 +100,11 @@ def encoder_n_out(cfg: RAVEConfig) -> int:
 
 
 def pqmf_in_delay(cfg: RAVEConfig) -> int:
-    """Streaming delay of the encoder's input stream in band frames (the
-    PQMF analysis delay)."""
+    """Streaming delay of the encoder's input stream in its frames: the
+    mel front end's in mel frames for a mel config, else the PQMF
+    analysis delay in band frames."""
+    if cfg.use_mel_encoder:
+        return mel_front_delay(cfg.mel_n_fft, cfg.mel_hop)
     if cfg.n_band > 1:
         _, pad_a, _, _ = _pqmf_kernels(cfg.pqmf_attenuation, cfg.n_band)
         return pad_a
@@ -122,14 +122,17 @@ def make_encoder(cfg: RAVEConfig, ss: StreamSetup) -> nn.Module:
             sample_norm=cfg.v1_sample_norm,
             repeat_layers=cfg.v1_repeat_layers, ss=ss)
     return EncoderV2(
-        data_size=cfg.effective_encoder_data_size(), capacity=cfg.capacity,
+        data_size=(cfg.mel_n_mels if cfg.use_mel_encoder
+                   else cfg.effective_encoder_data_size()),
+        capacity=cfg.capacity,
         ratios=cfg.encoder_ratios or cfg.ratios,
         latent_size=cfg.latent_size, n_out=encoder_n_out(cfg),
         kernel_size=cfg.kernel_size,
         dilations=cfg.encoder_dilations or cfg.dilations,
         keep_dim=cfg.keep_dim, activation=cfg.activation,
         weight_norm=cfg.weight_norm, adain=cfg.adain,
-        fused=cfg.fused_kernels, in_delay=pqmf_in_delay(cfg), ss=ss)
+        fused=cfg.fused_kernels, in_delay=pqmf_in_delay(cfg),
+        gru_layers=cfg.encoder_gru_layers, ss=ss)
 
 
 def make_decoder(cfg: RAVEConfig, ss: StreamSetup) -> nn.Module:
@@ -152,13 +155,15 @@ def make_decoder(cfg: RAVEConfig, ss: StreamSetup) -> nn.Module:
         use_noise=cfg.use_noise, noise_ratios=cfg.noise_ratios,
         noise_bands=cfg.noise_bands,
         activation=cfg.activation, weight_norm=cfg.weight_norm,
-        adain=cfg.adain, fused=cfg.fused_kernels, ss=ss)
+        adain=cfg.adain, fused=cfg.fused_kernels,
+        gru_layers=cfg.decoder_gru_layers, ss=ss)
 
 
 def band_frame_delay(cfg: RAVEConfig, ss: StreamSetup) -> int:
     """Composite encoder + decoder streaming delay in band frames: the
     encoder's latent-frame delay scaled through the decoder's upsamplers
-    plus the decoder's own delay."""
+    (the DECODER's ratios: a mel encoder has its own) plus the decoder's
+    own delay."""
     # built on the meta device: delay algebra only, no memory, no RNG draws
     with torch.device("meta"):
         enc, dec = make_encoder(cfg, ss), make_decoder(cfg, ss)
@@ -248,6 +253,9 @@ class RAVE(nn.Module):
         self.cfg = cfg
         self.streaming = streaming
         ss = stream_setup(cfg, streaming)
+        self.mel_frontend = (MelFrontEnd(cfg.mel_n_fft, cfg.mel_hop,
+                                         cfg.mel_n_mels, cfg.sampling_rate, ss)
+                             if cfg.use_mel_encoder else None)
         self.encoder = make_encoder(cfg, ss)
         self.latent = make_head(cfg)
         # the augmentation channels of a latent that goes without them
@@ -313,10 +321,23 @@ class RAVE(nn.Module):
         """Bands ``(B, M, T/M)`` -> audio ``(B, T, 1)``."""
         return self.pqmf.inverse(y)
 
-    def encode_input(self, bands: torch.Tensor) -> torch.Tensor:
+    def encode_input(self, bands: Optional[torch.Tensor],
+                     x: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Bands -> pre-regularisation latent ``(B, n_out * latent, T_z)``
-        from the first ``encoder_data_size`` bands."""
+        from the first ``encoder_data_size`` bands; a mel config reads
+        the log1p mel spectrogram of the audio ``x`` ``(B, T, 1)`` instead
+        (its bands may be None)."""
+        if self.mel_frontend is not None:
+            return self.encoder(self.mel_frontend(x[..., 0]))
         return self.encoder(bands[:, :self.cfg.effective_encoder_data_size()])
+
+    def input_bands(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        """The bands of ``x`` where inference reads them (the encoder or
+        the speaker encoder), else None: a mel config without a speaker
+        encoder runs no PQMF analysis."""
+        if self.mel_frontend is not None and self.speaker_encoder is None:
+            return None
+        return self.pqmf_forward(x)
 
     def speaker_embedding(self, bands: torch.Tensor) -> torch.Tensor:
         """Speaker embedding ``(B, 256)`` of all bands: with
@@ -429,8 +450,8 @@ class RAVE(nn.Module):
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Audio ``(B, T, 1)`` -> latent ``(B, T_z, C)`` (see
         :meth:`inference_latent`)."""
-        bands = self.pqmf_forward(x)
-        return self.inference_latent(x, bands, self.encode_input(bands),
+        bands = self.input_bands(x)
+        return self.inference_latent(x, bands, self.encode_input(bands, x),
                                      aug, generator).transpose(1, 2)
 
     def inference_latent(self, x: torch.Tensor, bands: torch.Tensor,
@@ -468,7 +489,7 @@ class RAVE(nn.Module):
         """Audio ``(B, T, 1)`` -> RVQ indices ``(B, n_quantizers, T_z)``
         int64 (discrete head only)."""
         head = self._discrete_head("encode_indices")
-        return head.encode(self.encode_input(self.pqmf_forward(x)))
+        return head.encode(self.encode_input(self.input_bands(x), x))
 
     def decode_indices(self, idx: torch.Tensor,
                        aug: Optional[torch.Tensor] = None,
@@ -530,7 +551,7 @@ class RAVE(nn.Module):
         if self.speaker_encoder is None:
             raise ValueError("convert needs a speaker-conditioned model")
         bands = self.pqmf_forward(x)
-        z = self.encode_input(bands)
+        z = self.encode_input(bands, x)
         B = target.shape[0]
         T = min(x.shape[1], target.shape[1])
         segs = 4 if T >= 4 * 32768 else 2

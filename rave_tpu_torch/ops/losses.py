@@ -1,10 +1,14 @@
 """Audio distances and GAN losses of the train steps, and the filtered-
 noise helpers of the noise generators.
 
-Port of ``mod_sigmoid``, ``mean_difference``, ``audio_distance_v1``,
-``mr_stft_resolutions``, ``multi_resolution_stft_loss``, the GAN
-objectives, ``amp_to_impulse_response`` and ``fft_convolve`` of
-``rave_tpu/ops/losses.py``.  Means accumulate in float32.
+Port of ``rave_tpu/ops/losses.py``: ``mod_sigmoid``, ``mean_difference``,
+``audio_distance_v1`` (linear or mel-scaled), ``mr_stft_resolutions``,
+``multi_resolution_stft_loss``, ``spectral_distance``,
+``encodec_audio_distance``, ``weighted_instantaneous_spectral_distance``,
+the GAN objectives, ``amp_to_impulse_response`` and ``fft_convolve``.
+The KL schedules (``get_beta_kl`` and its cyclic forms) live with the
+other schedules in :mod:`rave_tpu_torch.train.schedules`.  Means
+accumulate in float32.
 The JAX package's packed spectral features (``valid_frac``) have no
 counterpart here: the port's discriminators return native feature maps,
 whose plain means are what the packed ones correct to.
@@ -13,12 +17,12 @@ whose plain means are what the packed ones correct to.
 from __future__ import annotations
 
 import math
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
-from .stft import multiscale_stft, stft
+from .stft import mel_matrix, multiscale_stft, stft
 
 
 def mod_sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -46,12 +50,18 @@ def mean_difference(target: torch.Tensor, value: torch.Tensor,
 
 def audio_distance_v1(x: torch.Tensor, y: torch.Tensor,
                       scales: Sequence[int] = (2048, 1024, 512, 256, 128),
-                      log_epsilon: float = 1e-7) -> torch.Tensor:
-    """Per scale, the relative L2 distance of the STFT magnitudes plus
-    the L1 distance of their ``log(. + log_epsilon)``, summed over the
-    scales.  ``x``, ``y``: ``(B, T)`` or channels-first ``(B, C, T)``."""
+                      log_epsilon: float = 1e-7, sample_rate: int = 44100,
+                      num_mels: Optional[int] = None) -> torch.Tensor:
+    """Per scale, the relative L2 distance of the STFT magnitudes (mel-
+    scaled with ``num_mels``, :func:`~rave_tpu_torch.ops.stft.
+    multiscale_stft`) plus the L1 distance of their
+    ``log(. + log_epsilon)``, summed over the scales.  ``x``, ``y``:
+    ``(B, T)`` or channels-first ``(B, C, T)``."""
     total = x.new_zeros((), dtype=torch.float32)
-    for a, b in zip(multiscale_stft(x, scales), multiscale_stft(y, scales)):
+    for a, b in zip(multiscale_stft(x, scales, sample_rate=sample_rate,
+                                    num_mels=num_mels),
+                    multiscale_stft(y, scales, sample_rate=sample_rate,
+                                    num_mels=num_mels)):
         total = total + mean_difference(a, b, "L2", relative=True)
         total = total + mean_difference(torch.log(a + log_epsilon),
                                         torch.log(b + log_epsilon), "L1")
@@ -93,6 +103,91 @@ def multi_resolution_stft_loss(x: torch.Tensor, y: torch.Tensor,
         mag = mag + torch.mean(torch.abs(torch.log(ym) - torch.log(xm)))
     n = len(resolutions)
     return sc / n, mag / n
+
+
+def _mono(x: torch.Tensor) -> torch.Tensor:
+    """Audio ``(B, T, 1)`` -> ``(B, T)``; ``(B, T)`` as it is."""
+    return x[..., 0] if x.dim() == 3 else x
+
+
+def spectral_distance(x: torch.Tensor, y: torch.Tensor, n_fft: int,
+                      sample_rate: int = 44100,
+                      norms: Sequence[str] = ("L1",),
+                      power: Optional[float] = 1.0,
+                      mel: Optional[int] = None) -> torch.Tensor:
+    """Single-scale (mel-)spectrogram distance: the magnitude of an
+    uncentred STFT (hop ``n_fft // 4``), times the librosa mel basis with
+    ``mel`` bands, to the ``power``, then the sum over ``norms`` of
+    :func:`mean_difference` with ``y``'s as the target.  ``x``, ``y``:
+    ``(B, T)``."""
+
+    def spec(a):
+        s = stft(a, n_fft, n_fft // 4, center=False).abs()
+        if mel:
+            s = s @ mel_matrix(sample_rate, n_fft, mel, a.device).T
+        if power is not None and power != 1.0:
+            s = s ** power
+        return s
+
+    sx, sy = spec(x), spec(y)
+    total = x.new_zeros((), dtype=torch.float32)
+    for norm in norms:
+        total = total + mean_difference(sy, sx, norm)
+    return total
+
+
+def encodec_audio_distance(x: torch.Tensor, y: torch.Tensor,
+                           scales: Sequence[int] = (32, 64, 128, 256, 512,
+                                                    1024, 2048),
+                           sample_rate: int = 44100,
+                           mel: Optional[int] = None) -> dict:
+    """The L1 waveform distance and the sum over ``scales`` of
+    :func:`spectral_distance` with norms L1 and L2.  ``x``, ``y``:
+    ``(B, T)`` or audio ``(B, T, 1)``."""
+    x, y = _mono(x), _mono(y)
+    spec = x.new_zeros((), dtype=torch.float32)
+    for s in scales:
+        spec = spec + spectral_distance(x, y, s, sample_rate,
+                                        norms=("L1", "L2"), mel=mel)
+    return {"waveform_distance": mean_difference(y, x, "L1"),
+            "spectral_distance": spec}
+
+
+def _instantaneous_frequency(phase: torch.Tensor) -> torch.Tensor:
+    """The phase's derivative along the last (frequency) axis, each step
+    wrapped into [-pi, pi), cumulated, then differenced once more."""
+    d = phase[..., 1:] - phase[..., :-1]
+    d = torch.remainder(d + math.pi, 2 * math.pi) - math.pi
+    unwrapped = torch.cumsum(d, dim=-1)
+    return unwrapped[..., 1:] - unwrapped[..., :-1]
+
+
+def weighted_instantaneous_spectral_distance(
+        x: torch.Tensor, y: torch.Tensor,
+        scales: Sequence[int] = (2048, 1024, 512, 256, 128),
+        weighted: bool = False) -> dict:
+    """Per scale of a complex multi-scale STFT: the relative L2 distance
+    of the magnitudes plus the L1 distance of their ``log1p``
+    (``spectral_distance``), and the L2 distance of the instantaneous
+    frequencies, each weighted with ``weighted`` by
+    ``clip(log1p(|x|), 0, 1)`` (``phase_distance``).  ``x``, ``y``:
+    ``(B, T)`` or audio ``(B, T, C)``, as in the JAX package."""
+    if x.dim() == 3:
+        x, y = x.transpose(1, 2), y.transpose(1, 2)
+    spec = x.new_zeros((), dtype=torch.float32)
+    phase = x.new_zeros((), dtype=torch.float32)
+    for a, b in zip(multiscale_stft(x, scales, magnitude=False),
+                    multiscale_stft(y, scales, magnitude=False)):
+        aa, ba = a.abs(), b.abs()
+        spec = spec + mean_difference(aa, ba, "L2", relative=True)
+        spec = spec + mean_difference(torch.log1p(aa), torch.log1p(ba), "L1")
+        ia = _instantaneous_frequency(torch.angle(a))
+        ib = _instantaneous_frequency(torch.angle(b))
+        if weighted:
+            mask = torch.clamp(torch.log1p(aa[..., 2:]), 0.0, 1.0)
+            ia, ib = ia * mask, ib * mask
+        phase = phase + mean_difference(ia, ib, "L2")
+    return {"spectral_distance": spec, "phase_distance": phase}
 
 
 def hinge_gan(score_real, score_fake):

@@ -1,14 +1,15 @@
 """Short-time Fourier transform with the JAX package's conventions.
 
-Port of ``hann_window``, ``stft`` and ``multiscale_stft`` in
-``rave_tpu/ops/stft.py``.  The FFT itself is ``torch.stft`` (cuFFT on
-the card), as the JAX package leaves it to XLA outside any Pallas
-kernel.  The layout at the boundary stays the JAX package's: time-major
-``(..., frames, n_fft // 2 + 1)``.  The JAX package's hand-written VJP
-of its framing is a TPU lowering workaround; here autograd
-differentiates ``torch.stft``.  ``mel_filterbank`` is a numpy copy (the
-data pipeline's mel-k-means units read it); mel-scaled spectral
-distances (``num_mels``) belong to the hybrid slice (ROADMAP A7).
+Port of ``hann_window``, ``stft``, ``mel_filterbank`` and
+``multiscale_stft`` in ``rave_tpu/ops/stft.py``.  The FFT itself is
+``torch.stft`` (cuFFT on the card), as the JAX package leaves it to XLA
+outside any Pallas kernel. The layout at the boundary stays the JAX
+package's: time-major ``(..., frames, n_fft // 2 + 1)``. The JAX
+package's hand-written VJP of its framing is a TPU lowering workaround;
+here autograd differentiates ``torch.stft``. ``mel_filterbank`` is a
+numpy copy, read by the data pipeline's mel-k-means units, the
+mel-scaled spectral distances (``num_mels``) and the hybrid encoder's
+mel front end.
 """
 
 from __future__ import annotations
@@ -34,8 +35,16 @@ def _window(n_fft: int, win_length: int, device: torch.device) -> torch.Tensor:
     (the JAX package's padding), kept on ``device``; read-only."""
     win = hann_window(win_length)
     lp = (n_fft - win_length) // 2
-    win = np.pad(win, (lp, n_fft - win_length - lp))
-    return torch.from_numpy(win).to(device)
+    return _constant(np.pad(win, (lp, n_fft - win_length - lp)), device)
+
+
+def _constant(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``a`` as a tensor on ``device`` for a module-level cache: made
+    outside inference mode, so that a first call under
+    ``torch.inference_mode`` does not cache an inference tensor, which
+    autograd may not save."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(a).to(device)
 
 
 def _reflect_index(T: int, pad: int) -> np.ndarray:
@@ -147,18 +156,31 @@ def mel_filterbank(sample_rate: int, n_fft: int, n_mels: int,
 
 def multiscale_stft(x: torch.Tensor, scales: Sequence[int],
                     magnitude: bool = True, normalized: bool = False,
+                    sample_rate: int = 44100,
                     num_mels: Optional[int] = None) -> list[torch.Tensor]:
     """One centred STFT per scale ``s`` (``n_fft = s``, hop ``s // 4``),
-    its magnitude unless ``magnitude`` is false.  ``x`` is ``(B, T)`` or
+    its magnitude unless ``magnitude`` is false; with ``num_mels``, the
+    magnitude times the librosa (slaney scale, slaney norm) mel basis of
+    ``sample_rate``, ``(..., frames, num_mels)``.  ``x`` is ``(B, T)`` or
     channels-first ``(B, C, T)``, taken as ``B * C`` signals in that
     order (the JAX package's ``(B, T, C)`` transposed)."""
-    if num_mels is not None:
-        raise NotImplementedError(
-            "mel-scaled spectral distances are not ported to rave_tpu_torch "
-            "yet (ROADMAP A7)")
     x = x.reshape(-1, x.shape[-1])
     out = []
     for scale in scales:
         s = stft(x, scale, scale // 4, normalized=normalized)
+        if num_mels is not None:
+            out.append(s.abs() @ mel_matrix(sample_rate, scale, num_mels,
+                                            x.device).T)
+            continue
         out.append(s.abs() if magnitude else s)
     return out
+
+
+@lru_cache(maxsize=None)
+def mel_matrix(sample_rate: int, n_fft: int, n_mels: int,
+               device: torch.device, htk: bool = False,
+               norm: Optional[str] = "slaney") -> torch.Tensor:
+    """:func:`mel_filterbank` as a float32 tensor on ``device``;
+    read-only."""
+    return _constant(mel_filterbank(sample_rate, n_fft, n_mels, htk=htk,
+                                    norm=norm), device)

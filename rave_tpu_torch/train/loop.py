@@ -280,9 +280,9 @@ def _forward_losses(cfg: RAVEConfig, model: RAVE, batch: Mapping, step: int,
     draws = draws or {}
     x = batch["x"]
     bands_x = model.pqmf_forward(x)
-    bands_xp = (model.pqmf_forward(batch["x_perturbed"])
-                if "x_perturbed" in batch else bands_x)
-    z_pre = model.encode_input(bands_xp)
+    x_p = batch.get("x_perturbed", x)
+    bands_xp = model.pqmf_forward(x_p) if x_p is not x else bands_x
+    z_pre = model.encode_input(bands_xp, x_p)
 
     ce = reg = x.new_zeros(())
     if cfg.hubert_units > 0 and "units" in batch:
@@ -492,7 +492,7 @@ def make_eval_step(cfg: RAVEConfig):
         with torch.no_grad(), serving_mode(model):
             # the forward, its encoder pass shared with z_mean
             bands = model.pqmf_forward(x)
-            z_pre = model.encode_input(bands)
+            z_pre = model.encode_input(bands, x)
             z = model.inference_latent(x, bands, z_pre, draws.get("aug"), g)
             y = model.decode(z.transpose(1, 2), draws.get("aug"),
                              draws.get("noise"), g)

@@ -117,11 +117,23 @@ def test_variational_head_sampling_matches():
                                   ["latent_head=wasserstein",
                                    "compute_dtype=bfloat16"]])
 def test_unsupported_options_raise(over):
-    """What the port lacks raises, naming its ROADMAP item: the mel front
-    end and the GRU layers (A7), bf16 (A10); the A6 options build."""
-    item = "A10" if "compute_dtype=bfloat16" in over else "A7"
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        RAVE(build_config(["v2"], TINY + over), device="cpu")
+    """What the port lacks raises, naming its ROADMAP item: bf16 (A10).
+    The mel front end and the GRU layers (A7) build and run a tiny
+    forward: finite, shaped like the input (a mel encoder at a hop and
+    FFT size whose rate matches the decoder's, 16 x 4 samples per
+    latent frame)."""
+    if "compute_dtype=bfloat16" in over:
+        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+            RAVE(build_config(["v2"], TINY + over), device="cpu")
+        return
+    mel = (["mel_n_fft=256", "mel_hop=16", "mel_n_mels=32"]
+           if "use_mel_encoder=true" in over else [])
+    torch.manual_seed(0)
+    model = RAVE(build_config(["v2"], TINY + over + mel), device="cpu")
+    x = torch.randn(1, 2048, 1) * 0.3
+    with torch.no_grad():
+        y = model(x, generator=torch.Generator().manual_seed(0))
+    assert y.shape == x.shape and bool(torch.isfinite(y).all())
 
 
 def test_cuda_default_raises_without_cuda():

@@ -103,13 +103,15 @@ def test_unported_streaming_options_raise():
     state = RAVE(cfg, device="cpu").state_dict()
     # stereo and the host-rate resampler are ported
     # (tests/test_torch_resampler.py), AdaIN's controls too
-    # (tests/test_torch_v3.py), which refuse stereo, and the spherical
-    # head (tests/test_torch_latent_heads.py); the mel front end is not
+    # (tests/test_torch_v3.py), which refuse stereo, the spherical head
+    # (tests/test_torch_latent_heads.py) and the mel front end
+    # (tests/test_torch_hybrid.py), which refuses a chunk off its hop
     with pytest.raises(ValueError, match="stereo"):
         StreamingRAVE(build_config(["v2", "adain"], TINY), state,
                       stereo=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        StreamingRAVE(build_config(["hybrid"], TINY), state, device="cpu")
+    with pytest.raises(ValueError, match="multiple of mel_hop 128"):
+        StreamingRAVE(build_config(["hybrid"], TINY), state,
+                      chunk_size=3 * 64, device="cpu")
     with pytest.raises(ValueError, match="integer multiple"):
         StreamingRAVE(cfg, state, target_sr=3 * cfg.sampling_rate // 2,
                       device="cpu")

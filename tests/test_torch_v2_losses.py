@@ -52,7 +52,8 @@ def test_stft_centred_pad_at_least_signal(T, n_fft):
 
 @pytest.mark.parametrize("normalized", [False, True])
 def test_multiscale_stft_matches(normalized):
-    """Channels-first ``(B, C, T)`` against the JAX ``(B, T, C)``."""
+    """Channels-first ``(B, C, T)`` against the JAX ``(B, T, C)``, the
+    magnitudes and their mel-scaled form."""
     x = _signal((2, 16, 256), 1)
     want = jmultiscale(jnp.asarray(x.transpose(0, 2, 1)), SCALES,
                        normalized=normalized)
@@ -63,8 +64,14 @@ def test_multiscale_stft_matches(normalized):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5)
     complex_ = multiscale_stft(torch.from_numpy(x), SCALES, magnitude=False)
     assert complex_[0].is_complex()
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        multiscale_stft(torch.from_numpy(x), SCALES, num_mels=32)
+    # the mel-scaled branch (ported with the hybrid preset, ROADMAP A7)
+    want = jmultiscale(jnp.asarray(x.transpose(0, 2, 1)), SCALES,
+                       normalized=normalized, num_mels=32)
+    got = multiscale_stft(torch.from_numpy(x), SCALES, normalized=normalized,
+                          num_mels=32)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.shape[-1] == 32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5)
 
 
 @pytest.mark.parametrize("shape", [(2, 16, 256), (2, 4096)],
