@@ -295,14 +295,46 @@ the last line:
    whole hops: B1 16 per rank, the interior (a halo from each end)
    within 2e-4 of the one-process offline forward.
 
+17. bf16: ``compute_dtype=bfloat16`` serving (ROADMAP A10a) and kernel
+   B1's bf16 instance.  (a) B1-bf16 (``mma.sync.m16n8k16`` on bf16,
+   float32 accumulation, two roundings) over C in {128, 256, 384, 512},
+   k in {1, 3, 5}, dilations 1, 3, 9, T in {1, 333}, B in {1, 2} and a
+   window that takes chunks of 16: within 2 bf16 ulps of max |y| of its
+   plain twin (which rounds after each GEMM, bias and add, as the JAX
+   package's reference does), and nearer than the twin to float32
+   arithmetic on the same bf16 operands with the Pallas kernel's two
+   roundings (summed over the grid; at each shape of the bf16 paths:
+   the v2 forward's (4, 2048, 128), (4, 512, 256), (4, 256, 512) and
+   discrete's (4, 512, 384)), where call and device times stand beside
+   the twin's, with the bounds (989 TFLOP/s of dense bf16, 3.35 TB/s).
+   (b) The full-width ``v2`` batch (phase 3's weights,
+   ``fused_kernels=true``) in bf16: 16 B1-bf16 launches (counted, and
+   by ``torch.profiler``), no float32 B1, finite float32 audio between
+   1e-3 and 0.02 relative L2 of the float32 batch (not float32, not
+   wrong); CUDA-event medians of 10
+   batches and device times of both, in turns.  (c) Its stream in
+   2048-sample chunks over 32 chunks: bf16 and float32 caches, no B1,
+   ``process_file_scan`` equal to the eager chunks (2e-4), the offline
+   bf16 forward past the delay (median relative error < 0.01), chunk
+   median and p80.  (d) ``v2_fork`` ``RAVE.convert`` of 4 x 131072 in
+   bf16: 16 B1-bf16 launches, within 1e-3 to 0.02 of float32, times of
+   both; the
+   bf16 ``VoiceConverter`` over 8 chunks of 4096 (no B1, finite).  (e)
+   The bf16 stream's ``serialize`` (before phase 6; bf16 caches in the
+   manifest), its ``forward`` package compiled in phase 13's niced
+   subprocess, served by the C++ host over 32 blocks: within 0.02
+   relative L2 of the Python stream of the same chunks, p50/p80 block
+   time.
+
 ``python3 chip_smoke.py --parallel-cards N`` runs (a) and (c) alone
 with N NCCL ranks, one per card of one host, against one
 process on card 0, and ends with the same last two lines.
 
 Phase 13's four packages compile in ``nice 19`` subprocesses started
-after phase 5 (the v2 ``forward``), after phase 10 (the trained run's
-``convert``, its export copied under ``rave_tpu_torch/_build/``) and after
-phase 11 (``convert_pg`` and (d)'s CPU package), beside phase 14's.
+after phase 5 (the v2 ``forward``, then phase 17's bf16 one), after
+phase 10 (the trained run's ``convert``, its export copied under
+``rave_tpu_torch/_build/``) and after phase 11 (``convert_pg`` and (d)'s
+CPU package), beside phase 14's.
 
 Before the last line it prints the ``nvidia-smi`` line and one JSON
 object ``{"kernels": [...]}``; the last line is
@@ -324,10 +356,11 @@ SEED = 0
 BATCH, SAMPLES, CHUNK = 4, 131072, 2048
 TRAIN_BATCH = 8
 # timed D, G, G, G cycles of each train phase, and timed passes of the
-# file path: 3 and 5 before phase 14 existed, cut so that the whole run
-# stays well inside its time limit (their checks run as before)
-TIMED_CYCLES = 2
-FILE_RUNS = 3
+# file path: 3 and 5 before phase 14 existed, 2 and 3 before phase 17,
+# cut so that the whole run stays well inside its time limit (their
+# checks run as before)
+TIMED_CYCLES = 1
+FILE_RUNS = 1
 PEAK_F32_FLOPS = 67e12   # H100 SXM, float32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12  # H100 SXM, dense TF32 on the tensor cores
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
@@ -697,9 +730,9 @@ def phase_train(torch, np, KERNELS):
               "enc": state.enc_params, "dec": state.dec_params,
               "speaker": list(state.model.speaker_encoder.parameters())}
     expect_launches = {"D": {"residual_unit": 0, "ci1_conv_forward": 3,
-                             "ci1_conv_dx": 0},
+                             "ci1_conv_dx": 0, "residual_unit_bf16": 0},
                        "G": {"residual_unit": 0, "ci1_conv_forward": 3,
-                             "ci1_conv_dx": 3}}
+                             "ci1_conv_dx": 3, "residual_unit_bf16": 0}}
 
     # warm-up cycle D, G, G, G: launches, metrics, which groups move
     cycle = []
@@ -824,7 +857,8 @@ def phase_train_v2(torch, np, KERNELS):
     batch = {"x": train_batch(torch, np, TRAIN_BATCH, cfg.n_signal, 1)["x"]}
     groups = {"dis": list(state.disc.parameters()),
               "enc": state.enc_params, "dec": state.dec_params}
-    expect = {"residual_unit": 16, "ci1_conv_forward": 0, "ci1_conv_dx": 0}
+    expect = {"residual_unit": 16, "ci1_conv_forward": 0, "ci1_conv_dx": 0,
+              "residual_unit_bf16": 0}
 
     # warm-up: G, G in phase 1, then D, G, G, G
     warmup = []
@@ -1031,7 +1065,7 @@ def phase_voice_conversion(torch, np, KERNELS):
         torch.cuda.synchronize()
         launches = counts()
         check(launches == {"residual_unit": 16, "ci1_conv_forward": 0,
-                           "ci1_conv_dx": 0},
+                           "ci1_conv_dx": 0, "residual_unit_bf16": 0},
               f"convert launches {launches}")
         check(tuple(y.shape) == tuple(src.shape), f"convert shape {y.shape}")
         check(bool(torch.isfinite(y).all()), "convert output not finite")
@@ -1252,7 +1286,8 @@ def phase_train_vc_step(torch, np, KERNELS, norm, device="cuda"):
         torch.cuda.synchronize()
         launches = counts()
         want = {"residual_unit": 16, "ci1_conv_forward": 3,
-                "ci1_conv_dx": 3 if kind == "G" else 0}
+                "ci1_conv_dx": 3 if kind == "G" else 0,
+                "residual_unit_bf16": 0}
         check(launches == want, f"train_vc {norm} {kind} launches {launches}")
         values = {k: float(v) for k, v in metrics.items()}
         check(sorted(values) == TRAIN_VC_METRICS,
@@ -1561,11 +1596,16 @@ def manifest_caches(torch, np, manifest, binary, n: int, device="cuda"):
     lines = [ln.split() for ln in manifest.read_text().splitlines()[1:]]
     ins = [ln for ln in lines if ln[0] == "in"][:n]
     raw, caches, at = binary.read_bytes(), [], 0
-    for _, _, nbytes, rank, *dims in ins:
+    for _, dtype, nbytes, rank, *dims in ins:
         check(int(rank) == len(dims), f"manifest line {dims}")
-        a = np.frombuffer(raw, "<f4", int(nbytes) // 4, at)
-        caches.append(torch.tensor(a.reshape([int(d) for d in dims]),
-                                   device=device))
+        shape = [int(d) for d in dims]
+        if dtype == "bfloat16":
+            a = np.frombuffer(raw, "<i2", int(nbytes) // 2, at)
+            t = torch.tensor(a.reshape(shape)).view(torch.bfloat16)
+        else:
+            t = torch.tensor(np.frombuffer(raw, "<f4", int(nbytes) // 4,
+                                           at).reshape(shape))
+        caches.append(t.to(device))
         at += int(nbytes)
     check(at == len(raw), f"{binary.name}: {len(raw)} bytes, manifest {at}")
     return caches, at
@@ -2007,7 +2047,7 @@ def phase_pitch(torch, np, KERNELS, device="cuda"):
         torch.cuda.synchronize()
         launches = counts()
         check(launches == {"residual_unit": 16, "ci1_conv_forward": 0,
-                           "ci1_conv_dx": 0},
+                           "ci1_conv_dx": 0, "residual_unit_bf16": 0},
               f"pitch convert launches {launches}")
         check(tuple(y.shape) == tuple(src.shape), f"pitch convert {y.shape}")
         check(bool(torch.isfinite(y).all()), "pitch convert not finite")
@@ -2146,7 +2186,8 @@ def phase_pitch(torch, np, KERNELS, device="cuda"):
         step_ms[kind].append(t0.elapsed_time(t1))
         got = counts()
         want = {"residual_unit": 16, "ci1_conv_forward": 3,
-                "ci1_conv_dx": 3 if kind == "G" else 0}
+                "ci1_conv_dx": 3 if kind == "G" else 0,
+                "residual_unit_bf16": 0}
         check(got == want, f"pitch train {kind} launches {got}")
         values = {k: float(v) for k, v in metrics.items()}
         check(sorted(values) == TRAIN_METRICS,
@@ -2573,7 +2614,7 @@ def phase_discrete(torch, np, KERNELS, card, device="cuda"):
         torch.cuda.synchronize()
         launches = counts()
         check(launches == {"residual_unit": 6, "ci1_conv_forward": 0,
-                           "ci1_conv_dx": 0},
+                           "ci1_conv_dx": 0, "residual_unit_bf16": 0},
               f"discrete forward launches {launches}")
         check(tuple(y.shape) == tuple(x.shape) and bool(
             torch.isfinite(y).all()), "discrete forward shape or values")
@@ -2677,7 +2718,8 @@ def phase_discrete(torch, np, KERNELS, card, device="cuda"):
     batch = {"x": torch.tensor(voices(np, TRAIN_BATCH, cfg.n_signal,
                                       SEED + 3)[:, :, None],
                                dtype=torch.float32, device=device)}
-    expect = {"residual_unit": 6, "ci1_conv_forward": 0, "ci1_conv_dx": 0}
+    expect = {"residual_unit": 6, "ci1_conv_forward": 0, "ci1_conv_dx": 0,
+              "residual_unit_bf16": 0}
     train = train_cycles(torch, np, state, loop.make_train_step(cfg), batch,
                          expect, counts, reset, "discrete")
     books = codebooks(state.model)
@@ -2825,7 +2867,8 @@ def phase_v3(torch, np, KERNELS, card, device="cuda"):
     batch = {"x": torch.tensor(voices(np, TRAIN_BATCH, cfg.n_signal,
                                       SEED + 5)[:, :, None],
                                dtype=torch.float32, device=device)}
-    expect = {"residual_unit": 0, "ci1_conv_forward": 0, "ci1_conv_dx": 0}
+    expect = {"residual_unit": 0, "ci1_conv_forward": 0, "ci1_conv_dx": 0,
+              "residual_unit_bf16": 0}
     step_fn = loop.make_train_step(cfg)
     train = train_cycles(torch, np, state, step_fn, batch, expect, counts,
                          reset, "v3")
@@ -2958,7 +3001,27 @@ def serve_native(torch, np, export_dir, prefix, x, host, device="cuda",
     check(bool(np.isfinite(y).all()), f"host {prefix}: output not finite")
     res.update(compile_s=compile_s, package_mb=pkg.stat().st_size / 2 ** 20,
                proxy_ops=native.proxy_ops(pkg))
-    return res, y, np.fromfile(files["c"], np.float32), pkg
+    manifest = export_dir / ("io_manifest.txt" if prefix == "forward"
+                             else f"{prefix}_manifest.txt")
+    return res, y, read_carry(np, files["c"], manifest), pkg
+
+
+def read_carry(np, path, manifest):
+    """The caches of a raw file written in a manifest's cache dtypes
+    (``float32``, ``bfloat16``), flat, as float32."""
+    raw, vals, at = path.read_bytes(), [], 0
+    lines = [ln.split() for ln in manifest.read_text().splitlines()[1:]]
+    for _, dtype, nbytes, *_ in [ln for ln in lines
+                                 if ln[0] == "out"][1:]:
+        nbytes = int(nbytes)
+        if dtype == "bfloat16":
+            bits = np.frombuffer(raw, "<u2", nbytes // 2, at)
+            vals.append((bits.astype(np.uint32) << 16).view(np.float32))
+        else:
+            vals.append(np.frombuffer(raw, "<f4", nbytes // 4, at))
+        at += nbytes
+    check(at == len(raw), f"{path.name}: {len(raw)} bytes, manifest {at}")
+    return np.concatenate(vals)
 
 
 def program_blocks(torch, np, prog, carry, x, extra, device="cuda"):
@@ -2997,11 +3060,12 @@ def hold_host(np, what, y, want, carry, want_carry) -> dict:
     return {"max_abs_err_vs_program": err, "caches_max_abs_err": carry_err}
 
 
-def native_v2_export(torch, state, device="cuda") -> dict:
+def native_v2_export(torch, state, device="cuda", after=()) -> dict:
     """13(a)'s program: the offline phase's v2 weights in a stream of
     2048-sample chunks, serialized under ``rave_tpu_torch/_build/`` and its
     ``forward`` package compiled by a niced subprocess (started after
-    phase 5, so that the compile overlaps phases 6-12)."""
+    phase 5, so that the compile overlaps phases 6-12), then the
+    packages of ``after`` (17(e)'s bf16 ``forward``)."""
     from rave_tpu_torch.config import build_config
     from rave_tpu_torch.export.streaming import StreamingRAVE
     from rave_tpu_torch.ops.kernels.build import BUILD_DIR
@@ -3010,7 +3074,7 @@ def native_v2_export(torch, state, device="cuda") -> dict:
     t0 = time.perf_counter()
     StreamingRAVE(cfg, state, chunk_size=CHUNK, device=device).serialize(exp)
     return {"dir": exp, "serialize_s": time.perf_counter() - t0,
-            **compile_in_background([(exp, "forward", device)])}
+            **compile_in_background([(exp, "forward", device), *after])}
 
 
 def native_convert_export(np, run, wavs, device="cuda") -> dict:
@@ -4285,7 +4349,8 @@ def phase_parallel(torch, np, KERNELS, audio, state_v2, card, torchrun,
               f"rank {r}: {res['world']} ranks, {res['backend']}")
         for st in res["dp"]["steps"]:
             want = {"residual_unit": 16, "ci1_conv_forward": 3,
-                    "ci1_conv_dx": 3 if st["kind"] == "G" else 0}
+                    "ci1_conv_dx": 3 if st["kind"] == "G" else 0,
+                    "residual_unit_bf16": 0}
             check(st["launches"] == want,
                   f"rank {r} {st['kind']} launches {st['launches']}")
         check(res["time_sharded"]["launches"]["residual_unit"] == 16,
@@ -4406,6 +4471,394 @@ def phase_parallel(torch, np, KERNELS, audio, state_v2, card, torchrun,
           "torchrun_nccl": torchrun, "ranks_s": ranks_s,
           "phase_seconds": time.perf_counter() - t_phase})
     return {"g_step": g_launches, "time_sharded_forward": ts_launches}
+
+
+# ----------------------------------------------------------------------
+# phase 17: bf16 serving (ROADMAP A10a) and kernel B1's bf16 instance
+# ----------------------------------------------------------------------
+
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 on the tensor cores
+BF16_OVER = ["fused_kernels=true", "compute_dtype=bfloat16"]
+# B1-bf16 against its plain twin: max |kernel - twin| in bf16 ulps of
+# max |y| (2 ** (floor(log2 max |y|) - 7)).  The twin rounds after each
+# GEMM, bias and add, the kernel twice; on the CPU, float32 arithmetic
+# with the kernel's two roundings stays within 1 ulp of the twin over the
+# grid below.
+B1_BF16_ULPS = 2.0
+# the bf16 batch (and convert) against the float32 one of the same
+# weights, relative L2: bf16 keeps 8 significant bits through ~30 convs
+# (about 5e-3 at full width); a trunk that stayed float32 (TF32 off)
+# would read about 1e-6, under the lower bound
+BF16_REL_L2 = 0.02
+BF16_MIN_REL_L2 = 1e-3
+BF16_STREAM_CHUNKS = 32  # 2048-sample chunks of request 0 streamed in bf16
+BF16_HOST_BLOCKS = 32    # 2048-sample blocks of the bf16 package in the host
+# the host's blocks against the Python stream, relative L2: Inductor
+# fuses the step's pointwise ops and rounds to bf16 at other places
+# (5e-3 on the CPU at a tiny width)
+BF16_HOST_REL_L2 = 0.02
+BF16_STREAM_MEDIAN = 0.01  # the bf16 stream vs the offline bf16 forward
+BF16_VC_CHUNKS = 8       # 4096-sample chunks of the bf16 VoiceConverter
+
+
+def named_device_ms(torch, fn, name: str, iters: int = 20):
+    """Device time in ms per call of ``fn`` of the kernels whose name
+    holds ``name``, by :func:`device_profile` over ``iters`` calls; None
+    where the profile recorded none of them.  Late in a whole run the
+    profiler has recorded none of B1-bf16's kernels launched outside a
+    model (run alone, the kernel and phase 17 had them recorded), and
+    none of the mel front end's in phase 15."""
+    prof = device_profile(torch, lambda: [fn() for _ in range(iters)],
+                          names=(name,))
+    if not prof["named_count"][name]:
+        return None
+    return prof["named_ms"][name] / iters
+
+
+def bf16_ulp(y) -> float:
+    """The spacing of bf16 values at ``max |y|``."""
+    return 2.0 ** (math.floor(math.log2(y.abs().max().item())) - 7)
+
+
+def b1_bf16_contract(torch, x, w1, b1, w2, b2, d, pl, pr):
+    """B1's bf16 contract in float32 arithmetic on the bf16 operands (TF32
+    off): lrelu(x) in bf16, GEMM 1, + b1 and lrelu in float32, the hidden
+    tile rounded to bf16 once, GEMM 2, + b2 and + x in float32, rounded
+    once: the Pallas kernel's two roundings."""
+    import torch.nn.functional as F
+    from rave_tpu_torch.ops.precision import leaky_relu
+    h = F.pad(leaky_relu(x), (pl, pr)).float()
+    h = F.leaky_relu(F.conv1d(h, w1.float(), b1.float(), dilation=d), 0.2)
+    y = F.conv1d(h.to(torch.bfloat16).float(), w2.float()[:, :, None],
+                 b2.float())
+    return (y + x.float()).to(torch.bfloat16)
+
+
+def b1_bf16_case(torch, ru, args, d, pl, pr) -> dict:
+    """One B1-bf16 launch against its twin (bf16 ulps of max |y|) and both
+    against the float32 contract (relative L2)."""
+    got = ru.residual_unit_cuda(*args, d, pl, pr)
+    twin = ru.residual_unit_reference(*args, d, pl, pr)
+    ref = b1_bf16_contract(torch, *args, d, pl, pr).float()
+    torch.cuda.synchronize()
+    check(got.dtype == torch.bfloat16, f"B1-bf16 output {got.dtype}")
+    diff = (got.float() - twin.float()).abs().max().item()
+    norm = max(ref.norm().item(), 1e-30)
+    return {"max_abs_err": diff, "ulps": diff / bf16_ulp(twin.float()),
+            "kernel_rel_l2": (got.float() - ref).norm().item() / norm,
+            "twin_rel_l2": (twin.float() - ref).norm().item() / norm,
+            "kernel_sq": (got.float() - ref).norm().item() ** 2,
+            "twin_sq": (twin.float() - ref).norm().item() ** 2}
+
+
+def phase_bf16_kernels(torch, ru, launches_per_shape) -> dict:
+    """17(a): B1-bf16 over a grid (C in {128, 256, 384, 512}, k in {1, 3,
+    5}, the v2 dilations, odd T and T = 1, a window that takes chunks of
+    16) and at the shapes the bf16 paths give it: within
+    ``B1_BF16_ULPS`` of the twin; nearer the float32 contract than the
+    twin (at each main-path shape, and over the grid as a whole); then
+    call and device times beside the twin's, and the bounds."""
+    bf = torch.bfloat16
+    grid = [(k, C, d, T, B) for C in (128, 256, 384, 512) for k in (1, 3, 5)
+            for d in (1, 3, 9) for T in (1, 333) for B in (1, 2)]
+    got = ru.launch_info(1, 128, 333, 3, 1000, bf)["chunk"]
+    check(got == 16, f"B1-bf16 d=1000: chunk {got}, expected 16")
+    grid.append((3, 128, 1000, 333, 1))
+    worst, sq_k, sq_t = {"ulps": 0.0, "max_abs_err": 0.0}, 0.0, 0.0
+    for n, (k, C, d, T, B) in enumerate(grid):
+        args = [a.to(bf) for a in unit_inputs(torch, B, C, T, k=k, seed=n)]
+        pl, pr = pads(k, d)
+        r = b1_bf16_case(torch, ru, args, d, pl, pr)
+        check(r["ulps"] <= B1_BF16_ULPS,
+              f"B1-bf16 k={k} C={C} d={d} T={T} B={B}: {r['ulps']} ulps")
+        for key in worst:
+            worst[key] = max(worst[key], r[key])
+        sq_k, sq_t = sq_k + r["kernel_sq"], sq_t + r["twin_sq"]
+    check(sq_k <= sq_t, f"B1-bf16 grid: kernel {sq_k} vs twin {sq_t} "
+          "squared distance from the float32 contract")
+    torch.cuda.empty_cache()
+    emit({"phase": "bf16", "step": "kernel", "name": "residual_unit_bf16",
+          "cases": len(grid), "worst": worst, "ulps_bound": B1_BF16_ULPS,
+          "grid_rel_l2_ratio_kernel_to_twin": (sq_k / sq_t) ** 0.5})
+
+    shapes = []
+    for (path, B, T, C, d), count in launches_per_shape.items():
+        args = [a.to(bf) for a in unit_inputs(torch, B, C, T, seed=C + d)]
+        pl, pr = pads(3, d)
+        kernel = lambda: ru.residual_unit_cuda(*args, d, pl, pr)  # noqa: E731
+        plain = lambda: ru.residual_unit_reference(  # noqa: E731
+            *args, d, pl, pr)
+        with torch.inference_mode():
+            r = b1_bf16_case(torch, ru, args, d, pl, pr)
+            check(r["ulps"] <= B1_BF16_ULPS,
+                  f"B1-bf16 main-path {(B, T, C)} d={d}: {r['ulps']} ulps")
+            check(r["kernel_rel_l2"] <= r["twin_rel_l2"],
+                  f"B1-bf16 {(B, T, C)} d={d}: kernel {r['kernel_rel_l2']} "
+                  f"farther from the float32 contract than the twin "
+                  f"{r['twin_rel_l2']}")
+            plain_ms = cuda_ms(torch, plain)
+            ms = cuda_ms(torch, kernel)
+            ms2 = cuda_ms(torch, kernel)
+            plain_ms2 = cuda_ms(torch, plain)
+            dev_ms = named_device_ms(torch, kernel,
+                                     "residual_unit_bf16_kernel")
+            plain_dev_ms = device_ms(torch, plain)
+        info = ru.launch_info(B, C, T, 3, d, bf)
+        check(info["ctas"] == B * -(-T // 64) * (C // 64)
+              and info["cluster"] == C // 64,
+              f"B1-bf16 {(B, T, C)}: {info['ctas']} CTAs, cluster "
+              f"{info['cluster']}")
+        flops = 2 * B * T * C * C * 4
+        nbytes = 2 * (2 * B * T * C + 4 * C * C + 2 * C)
+        t_ops = flops / PEAK_BF16_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        shapes.append({
+            "shape": [B, T, C], "dilation": d, "path": path,
+            "launches_per_call": count, "launch": info,
+            **{k: r[k] for k in ("max_abs_err", "ulps", "kernel_rel_l2",
+                                 "twin_rel_l2")},
+            "ms": min(ms, ms2), "plain_ms": min(plain_ms, plain_ms2),
+            "device_ms": dev_ms, "plain_device_ms": plain_dev_ms,
+            "bound_ms": max(t_ops, t_bytes), "ops_ms": t_ops,
+            "bytes_ms": t_bytes,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "gflop": flops / 1e9, "mbytes": nbytes / 1e6})
+    emit({"phase": "bf16", "step": "kernel_times",
+          "name": "residual_unit_bf16", "shapes": shapes})
+    return {"worst": worst, "shapes": shapes}
+
+
+def bf16_export(torch, state, device="cuda") -> dict:
+    """17(e)'s program: the offline phase's v2 weights in a bf16 stream of
+    2048-sample chunks, serialized under ``rave_tpu_torch/_build/`` before
+    phase 6; its ``forward`` package compiles in phase 13's niced
+    subprocess after the float32 one (:func:`native_v2_export`)."""
+    from rave_tpu_torch.config import build_config
+    from rave_tpu_torch.export.streaming import StreamingRAVE
+    from rave_tpu_torch.ops.kernels.build import BUILD_DIR
+    cfg = build_config(["v2"], BF16_OVER)
+    exp = BUILD_DIR / "native_bf16"
+    t0 = time.perf_counter()
+    StreamingRAVE(cfg, state, chunk_size=CHUNK, device=device).serialize(exp)
+    return {"dir": exp, "serialize_s": time.perf_counter() - t0}
+
+
+def rel_l2(a, b) -> float:
+    return float(((a - b) ** 2).sum() ** 0.5 / ((b ** 2).sum() ** 0.5))
+
+
+def phase_bf16(torch, np, KERNELS, ru, audio, state, card, nv2, bfx,
+               device="cuda"):
+    """Phase 17 (see the module docstring): B1-bf16 against its twin and
+    the float32 contract, the bf16 v2 batch, stream, ``v2_fork`` convert
+    and the bf16 ``forward`` package in the C++ host.  Returns the
+    launch counts of each path and the kernel's numbers."""
+    from rave_tpu_torch.config import build_config
+    from rave_tpu_torch.export import native
+    from rave_tpu_torch.export.streaming import StreamingRAVE
+    from rave_tpu_torch.export.voice_conversion import VoiceConverter
+    from rave_tpu_torch.models.rave import RAVE
+
+    t_phase = time.perf_counter()
+    counts = lambda: {k.name: k.launches for k in KERNELS}  # noqa: E731
+
+    def reset():
+        for k in KERNELS:
+            k.launches = 0
+
+    bf = torch.bfloat16
+    only = lambda n: {"residual_unit": 0, "ci1_conv_forward": 0,  # noqa: E731
+                      "ci1_conv_dx": 0, "residual_unit_bf16": n}
+    # (a) the kernel: the v2 forward's shapes (each (C, d) once in the
+    # encoder and once in the generator, batch 4) and discrete's C = 384
+    T0 = SAMPLES // 16
+    per_shape = {}
+    for C, T, dils in ((128, T0 // 4, (1, 3, 9)), (256, T0 // 16, (1, 3, 9)),
+                       (512, T0 // 32, (1, 3))):
+        for d in dils:
+            per_shape[("offline_v2", BATCH, T, C, d)] = 2
+    for d in (1, 3, 9):
+        per_shape[("offline_discrete", BATCH, T0 // 16, 384, d)] = 2
+    kern = phase_bf16_kernels(torch, ru, per_shape)
+
+    # (b) the offline batch in bf16 against the float32 one
+    cfg = build_config(["v2"], BF16_OVER)
+    model = RAVE(cfg, device=device).eval()
+    model.load_state_dict(state)
+    f32 = RAVE(build_config(["v2"], ["fused_kernels=true"]),
+               device=device).eval()
+    f32.load_state_dict(state)
+    x = torch.tensor(audio[:, :, None], dtype=torch.float32, device=device)
+    with torch.inference_mode():
+        reset()
+        y = model(x)
+        torch.cuda.synchronize()
+        launches = counts()
+        check(launches == only(16), f"bf16 forward launches {launches}")
+        check(y.dtype == torch.float32 and tuple(y.shape) == tuple(x.shape)
+              and bool(torch.isfinite(y).all()), "bf16 batch output")
+        y32 = f32(x)
+        rel = rel_l2(y, y32)
+        check(BF16_MIN_REL_L2 <= rel <= BF16_REL_L2,
+              f"bf16 vs float32 batch: {rel}")
+        prof = device_profile(torch, lambda: model(x),
+                              names=("residual_unit_bf16_kernel",
+                                     "residual_unit_kernel"))
+        check(prof["named_count"] == {"residual_unit_bf16_kernel": 16,
+                                      "residual_unit_kernel": 0},
+              f"bf16 forward profile: {prof['named_count']}")
+        times, times32 = [], []
+        for _ in range(10):
+            times.append(cuda_ms(torch, lambda: model(x), iters=1,
+                                 warmup=0))
+            times32.append(cuda_ms(torch, lambda: f32(x), iters=1,
+                                   warmup=0))
+        dev, dev32 = device_ms(torch, lambda: model(x), iters=5), device_ms(
+            torch, lambda: f32(x), iters=5)
+    audio_s = BATCH * SAMPLES / cfg.sampling_rate
+    batch_ms, batch_ms32 = statistics.median(times), statistics.median(
+        times32)
+    emit({"phase": "bf16", "step": "offline", "card": card, "config": "v2",
+          "overrides": BF16_OVER, "batch": [BATCH, SAMPLES, 1],
+          "launches": launches, "profile_b1_bf16_count":
+          prof["named_count"]["residual_unit_bf16_kernel"],
+          "b1_bf16_share": prof["named_ms"]["residual_unit_bf16_kernel"]
+          / prof["device_ms"],
+          "rel_l2_vs_float32": rel, "rel_l2_bound": BF16_REL_L2,
+          "batch_ms": batch_ms, "batch_ms_float32": batch_ms32,
+          "rtf": batch_ms / 1e3 / audio_s,
+          "device_ms": dev, "device_ms_float32": dev32,
+          "batch_ms_all": times, "batch_ms_float32_all": times32})
+    del f32
+
+    # (c) the bf16 stream: eager against the CUDA graph, against the
+    # offline bf16 forward past the delay, no B1 launch
+    sr = StreamingRAVE(cfg, state, chunk_size=CHUNK, device=device)
+    dtypes = [str(c.dtype) for c in sr.init_caches]
+    check("torch.bfloat16" in dtypes and "torch.float32" in dtypes,
+          f"bf16 stream caches {sorted(set(dtypes))}")
+    n = BF16_STREAM_CHUNKS * CHUNK
+    signal = audio[0, :n].astype(np.float32)
+    sr.process_file(signal[:8 * CHUNK])  # warm-up
+    sr.reset()
+    reset()
+    chunk_ms, outs = [], []
+    for i in range(0, n, CHUNK):
+        t0 = time.perf_counter()
+        out = sr.forward(signal[i:i + CHUNK].reshape(1, -1, 1))
+        torch.cuda.synchronize()
+        chunk_ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out[0, :, 0])
+    stream_launches = counts()
+    check(stream_launches == only(0), f"bf16 stream launches "
+          f"{stream_launches}")
+    eager = torch.cat(outs).cpu().numpy()
+    scan = sr.process_file_scan(signal)
+    graph_err = float(np.abs(scan - eager).max())
+    check(graph_err <= EXPORT_TOL, f"bf16 graph vs eager: {graph_err}")
+    d = sr.total_delay_samples()
+    a = y[0, :n, 0].cpu().numpy()
+    m = 2 * d + 256
+    a_cmp, b_cmp = a[m - d:n - d - 256], eager[m:n - 256]
+    med = float(np.median(np.abs(a_cmp - b_cmp))
+                / (np.abs(a_cmp).mean() + 1e-9))
+    check(med < BF16_STREAM_MEDIAN,
+          f"bf16 stream vs offline median rel err {med}")
+    emit({"phase": "bf16", "step": "stream", "card": card, "chunk": CHUNK,
+          "chunks": BF16_STREAM_CHUNKS, "cache_dtypes": {
+              t: dtypes.count(t) for t in sorted(set(dtypes))},
+          "launches": stream_launches, "graph_vs_eager_max_abs": graph_err,
+          "delay_samples": d, "median_rel_err_vs_offline": med,
+          "chunk_ms_median": statistics.median(chunk_ms),
+          "chunk_ms_p80": float(np.percentile(chunk_ms, 80))})
+
+    # (d) v2_fork convert in bf16 against float32, and the streamed
+    # converter once
+    fcfg = build_config(["v2_fork"], BF16_OVER)
+    torch.manual_seed(SEED)
+    fork32 = RAVE(build_config(["v2_fork"], ["fused_kernels=true"]),
+                  device=device).eval()
+    fstate = fork32.state_dict()
+    fork = RAVE(fcfg, device=device).eval()
+    fork.load_state_dict(fstate)
+    speakers = voices(np, VC_SPEAKERS, VC_SAMPLES)
+    half = VC_SAMPLES // 2
+    src = torch.tensor(speakers[:, :half, None], device=device)
+    tgt = torch.tensor(np.roll(speakers, -1, axis=0)[:, half:, None],
+                       device=device)
+    with torch.inference_mode():
+        reset()
+        yc = fork.convert(src, tgt)
+        torch.cuda.synchronize()
+        convert_launches = counts()
+        check(convert_launches == only(16),
+              f"bf16 convert launches {convert_launches}")
+        check(bool(torch.isfinite(yc).all()), "bf16 convert not finite")
+        yc32 = fork32.convert(src, tgt)
+        crel = rel_l2(yc, yc32)
+        check(BF16_MIN_REL_L2 <= crel <= BF16_REL_L2,
+              f"bf16 vs float32 convert: {crel}")
+        ctimes, ctimes32 = [], []
+        for _ in range(5):
+            ctimes.append(cuda_ms(torch, lambda: fork.convert(src, tgt),
+                                  iters=1, warmup=0))
+            ctimes32.append(cuda_ms(torch, lambda: fork32.convert(src, tgt),
+                                    iters=1, warmup=0))
+    del fork32, fork
+    vc = VoiceConverter(fcfg, fstate, chunk_size=VC_CHUNK, device=device)
+    vc.speaker_table = vc.table_from_clips(list(speakers))
+    vc.set_speaker(1)
+    reset()
+    vc_ms, vouts = [], []
+    for i in range(BF16_VC_CHUNKS):
+        t0 = time.perf_counter()
+        vouts.append(vc.forward(speakers[0, i * VC_CHUNK:(i + 1) * VC_CHUNK]))
+        vc_ms.append((time.perf_counter() - t0) * 1e3)
+    vc_launches = counts()
+    check(vc_launches == only(0), f"bf16 VoiceConverter launches "
+          f"{vc_launches}")
+    check(all(np.isfinite(v).all() for v in vouts),
+          "bf16 VoiceConverter output not finite")
+    emit({"phase": "bf16", "step": "convert", "card": card,
+          "config": "v2_fork", "overrides": BF16_OVER,
+          "batch": [VC_SPEAKERS, half, 1], "launches": convert_launches,
+          "rel_l2_vs_float32": crel, "rel_l2_bound": BF16_REL_L2,
+          "convert_ms": statistics.median(ctimes),
+          "convert_ms_float32": statistics.median(ctimes32),
+          "voice_converter": {"chunk": VC_CHUNK, "chunks": BF16_VC_CHUNKS,
+                              "launches": vc_launches,
+                              "chunk_ms_median": statistics.median(vc_ms)}})
+    del vc
+
+    # (e) the bf16 forward package in the C++ host against the Python
+    # stream of the same chunks
+    host = native.build_host(device)
+    exp = bfx["dir"]
+    manifest = (exp / "io_manifest.txt").read_text()
+    check("bfloat16" in manifest, "bf16 manifest without bfloat16 caches")
+    n = BF16_HOST_BLOCKS * CHUNK
+    signal = audio[0, :n].astype(np.float32)
+    xb = signal.reshape(BF16_HOST_BLOCKS, CHUNK)
+    res, yh, _, _ = serve_native(torch, np, exp, "forward", xb, host, device,
+                                 compiled_packages(nv2)[exp])
+    want = sr.process_file(signal).reshape(BF16_HOST_BLOCKS, CHUNK)
+    hrel = rel_l2(yh, want)
+    check(hrel <= BF16_HOST_REL_L2, f"bf16 host vs Python stream: {hrel}")
+    emit({"phase": "bf16", "step": "native", "card": card, "config": "v2",
+          "overrides": BF16_OVER, "chunk": CHUNK,
+          "chunk_ms_of_audio": CHUNK / cfg.sampling_rate * 1e3,
+          "rel_l2_vs_python_stream": hrel,
+          "max_abs_err_vs_python_stream": float(np.abs(yh - want).max()),
+          "rel_l2_bound": BF16_HOST_REL_L2,
+          "serialize_s": bfx["serialize_s"],
+          **{k: res[k] for k in ("blocks", "block_ms_p50", "block_ms_p80",
+                                 "pipelined_rtf", "blocking_rtf", "loaded_s",
+                                 "compile_s", "package_mb", "cuda_graph")},
+          "phase_seconds": time.perf_counter() - t_phase})
+    return {"forward": launches["residual_unit_bf16"],
+            "convert": convert_launches["residual_unit_bf16"],
+            "stream_chunk": stream_launches["residual_unit_bf16"]
+            / BF16_STREAM_CHUNKS, **kern}
 
 
 def request_audio(np):
@@ -4628,12 +5081,15 @@ def main() -> int:
     # subprocess from here on
     hyb = hybrid_export(torch)
     v3 = a6_v3_export(torch, after=[(hyb["dir"], "forward", "cuda")])
-    # 13(a)'s v2 forward package compiles in a second niced subprocess
-    nv2 = native_v2_export(torch, model.state_dict())
+    # 13(a)'s v2 forward package, then 17(e)'s bf16 one, compile in a
+    # second niced subprocess
+    bfx = bf16_export(torch, model.state_dict())
+    nv2 = native_v2_export(torch, model.state_dict(),
+                           after=[(bfx["dir"], "forward", "cuda")])
     try:
         return _phases(torch, np, KERNELS, smi, kind, model, x, audio,
                        launches, max_err, shapes, ci1_err, ci1_shapes, v3,
-                       hyb, nv2)
+                       hyb, nv2, bfx)
     finally:
         for proc in BACKGROUND:
             if proc.poll() is None:
@@ -4642,8 +5098,9 @@ def main() -> int:
 
 
 def _phases(torch, np, KERNELS, smi, kind, model, x, audio, launches,
-            max_err, shapes, ci1_err, ci1_shapes, v3, hyb, nv2) -> int:
-    """Phases 6-16 and the summary (see :func:`main`)."""
+            max_err, shapes, ci1_err, ci1_shapes, v3, hyb, nv2, bfx) -> int:
+    """Phases 6-17 and the summary (see :func:`main`)."""
+    from rave_tpu_torch.ops.kernels import residual_unit as ru
     # 6. the v2_fork train step
     g_launches = phase_train(torch, np, KERNELS)
 
@@ -4696,6 +5153,10 @@ def _phases(torch, np, KERNELS, smi, kind, model, x, audio, launches,
     par = phase_parallel(torch, np, KERNELS, audio, model.state_dict(), smi,
                          torchrun)
 
+    # 17. bf16 serving: B1-bf16, the batch, the stream, convert, the host
+    bf16 = phase_bf16(torch, np, KERNELS, ru, audio, model.state_dict(), smi,
+                      nv2, bfx)
+
     # summary
     def total(key, path="offline_v2"):
         t = sum(s[key] * s["launches_per_call"] for s in shapes
@@ -4746,6 +5207,7 @@ def _phases(torch, np, KERNELS, smi, kind, model, x, audio, launches,
         **a6_launches(a6, "residual_unit"),
         **hybrid_launches("residual_unit"),
         **par_launches("residual_unit"),
+        "launches_bf16_forward": 0,
         **{path: {k: total(k, path) for k in (
             "ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms",
             "bound_ms_f32")}
@@ -4783,6 +5245,32 @@ def _phases(torch, np, KERNELS, smi, kind, model, x, audio, launches,
             **hybrid_launches(name),
             **par_launches(name),
             "library_ms": per("plain_ms")})
+    # B1-bf16: the bf16 v2 forward's shapes; no PyTorch call computes B1
+
+    def bsum(f, path="offline_v2"):
+        vals = [(s[f], s["launches_per_call"]) for s in bf16["shapes"]
+                if s["path"] == path]
+        if any(v is None for v, _ in vals):
+            return None     # a device time the profiler did not record
+        return sum(v * n for v, n in vals)
+
+    src = "rave_tpu_torch/csrc/residual_unit.cu"
+    kernels.append({
+        "name": "residual_unit_bf16", "route": "cuda", "source": src,
+        "replaces": "rave_tpu/ops/pallas/residual_unit.py:62",
+        "launches": bf16["forward"],
+        "max_abs_err": bf16["worst"]["max_abs_err"],
+        "ms": bsum("ms"), "plain_ms": bsum("plain_ms"),
+        "device_ms": bsum("device_ms"),
+        "plain_device_ms": bsum("plain_device_ms"),
+        "bound_ms": bsum("bound_ms"),
+        "bound_by": ("operations" if bsum("ops_ms") >= bsum("bytes_ms")
+                     else "bytes"),
+        "library_ms": None, "ulps_vs_twin": bf16["worst"]["ulps"],
+        "launches_bf16_convert": bf16["convert"],
+        "launches_bf16_stream_chunk": bf16["stream_chunk"],
+        "offline_discrete": {k: bsum(k, "offline_discrete") for k in (
+            "ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms")}})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

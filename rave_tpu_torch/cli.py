@@ -114,6 +114,10 @@ def build_parser() -> argparse.ArgumentParser:
     ex.add_argument("--speaker_wavs", nargs="*", default=[],
                     help="target-speaker wavs whose embeddings become the "
                          "exported speaker table")
+    ex.add_argument("--compute_dtype", choices=["float32", "bfloat16"],
+                    default=None,
+                    help="dtype of the encoder and decoder in the exported "
+                         "steps (default: the run's; bfloat16 serves only)")
     ex.add_argument("--device", default="cuda",
                     help="torch device the programs are exported on")
 

@@ -17,8 +17,8 @@
 //   x_in=<file>    raw float32 chunk input, n_blocks blocks of
 //                  batch * chunk samples; without it the input is zeros
 //   y_out=<file>   every block of the blocking loop's output, raw float32
-//   carry_out=<file>  the caches after the blocking loop, raw float32 in
-//                  manifest order
+//   carry_out=<file>  the caches after the blocking loop, raw, each in its
+//                  manifest dtype, in manifest order
 //
 // Per audio block the step is pure over the manifest's call convention
 //   (cache..., x, extra...) -> (y, cache...)
@@ -28,14 +28,18 @@
 // reports (its metadata, then the outputs of the first call) is held
 // against the manifest; the first that differs exits 1.  Inputs other
 // than the chunk (the speaker embedding, the pitch feature) stay zeros.
+// A manifest entry is float32 or bfloat16 (the caches of a step exported
+// with compute_dtype=bfloat16, read from the raw little-endian bf16 of
+// the cache file into bf16 inputs and carried as such), as
+// native/pjrt_host.cpp takes them; any other dtype exits 1.  The chunk
+// and the output are float32.
 //
 // On the card, once the caches are warm, one block (the step and the
 // copy of its new caches into the static ones) is captured in a CUDA
 // graph and replayed per block: the counterpart of one PJRT execution.
 // A capture that fails exits 1; the host never falls back.
 //
-// Float32 throughout: TF32 is off for cuDNN and cuBLAS, as in the
-// port's reference numbers.
+// TF32 is off for cuDNN and cuBLAS, as in the port's reference numbers.
 //
 // Loops, each from the initial caches over the same n_blocks blocks:
 // one warm-up call, a pipelined loop (only the last block fetched), a
@@ -70,6 +74,7 @@
 namespace {
 
 struct TensorSpec {
+  at::ScalarType dtype;
   size_t nbytes;
   std::vector<int64_t> dims;
 };
@@ -189,8 +194,11 @@ int main(int argc, char** argv) {
     std::string dtype;
     size_t nbytes = 0, ndims = 0;
     ls >> dtype >> nbytes >> ndims;
-    if (dtype != "float32") Fail("unsupported dtype in manifest: " + dtype);
-    TensorSpec spec{nbytes, std::vector<int64_t>(ndims)};
+    at::ScalarType type;
+    if (dtype == "float32") type = at::kFloat;
+    else if (dtype == "bfloat16") type = at::kBFloat16;
+    else Fail("unsupported dtype in manifest: " + dtype);
+    TensorSpec spec{type, nbytes, std::vector<int64_t>(ndims)};
     for (size_t i = 0; i < ndims; ++i) ls >> spec.dims[i];
     if (!ls || (kind != "in" && kind != "out"))
       Fail("bad manifest line: " + line);
@@ -204,6 +212,8 @@ int main(int argc, char** argv) {
   if (num_cache >= num_args)
     Fail("manifest: as many cache outputs as inputs (no chunk input)");
   const TensorSpec& x_spec = in_specs[num_cache];
+  if (x_spec.dtype != at::kFloat || out_specs[0].dtype != at::kFloat)
+    Fail("manifest: the chunk and the output must be float32");
   std::fprintf(stderr,
                "model: step=%s chunk=%lld sr=%lld batch=%lld "
                "cache_leaves=%zu extra_inputs=%zu device=%s\n",
@@ -244,10 +254,13 @@ int main(int argc, char** argv) {
                 package_path);
   }
   for (size_t i = 0; i < num_cache; ++i)
-    if (in_specs[i].dims != out_specs[i + 1].dims)
+    if (in_specs[i].dims != out_specs[i + 1].dims ||
+        in_specs[i].dtype != out_specs[i + 1].dtype)
       Fail("manifest: cache " + std::to_string(i) + " goes in as " +
-           ShapeStr(in_specs[i].dims) + " and comes out as " +
-           ShapeStr(out_specs[i + 1].dims));
+           ShapeStr(in_specs[i].dims) + " " +
+           c10::toString(in_specs[i].dtype) + " and comes out as " +
+           ShapeStr(out_specs[i + 1].dims) + " " +
+           c10::toString(out_specs[i + 1].dtype));
   const double loaded_s = Seconds(t_load0);
 
   // ---- inputs ----------------------------------------------------------
@@ -261,7 +274,8 @@ int main(int argc, char** argv) {
          " bytes, the manifest's caches " + std::to_string(cache_bytes));
   std::vector<at::Tensor> init(num_cache);
   for (size_t i = 0, off = 0; i < num_cache; off += in_specs[i].nbytes, ++i)
-    init[i] = at::from_blob(cache_init.data() + off, in_specs[i].dims, f32)
+    init[i] = at::from_blob(cache_init.data() + off, in_specs[i].dims,
+                            at::TensorOptions().dtype(in_specs[i].dtype))
                   .to(dev, /*non_blocking=*/false, /*copy=*/true);
   // the chunk of every block, on the host (pinned on the card, so that a
   // block's copy is asynchronous and each block has its own source)
@@ -279,8 +293,12 @@ int main(int argc, char** argv) {
   }
   std::vector<at::Tensor> args(num_args);
   for (size_t i = 0; i < num_args; ++i)
-    args[i] = i < num_cache ? init[i].clone() : at::zeros(in_specs[i].dims,
-                                                         f32.device(dev));
+    args[i] = i < num_cache
+                  ? init[i].clone()
+                  : at::zeros(in_specs[i].dims,
+                              at::TensorOptions()
+                                  .dtype(in_specs[i].dtype)
+                                  .device(dev));
   at::Tensor& x = args[num_cache];
   auto reset = [&]() {
     for (size_t i = 0; i < num_cache; ++i) args[i].copy_(init[i]);
@@ -397,7 +415,7 @@ int main(int argc, char** argv) {
     if (!cf) Fail("cannot write " + carry_out);
     for (size_t i = 0; i < num_cache; ++i) {
       at::Tensor c = args[i].cpu().contiguous();
-      if (std::fwrite(c.data_ptr<float>(), 4, c.numel(), cf) !=
+      if (std::fwrite(c.data_ptr(), c.element_size(), c.numel(), cf) !=
           static_cast<size_t>(c.numel()))
         Fail("cannot write " + carry_out);
     }

@@ -62,8 +62,26 @@
 //   swizzle, so A would come from registers).
 // * The dynamic shared-memory limit is raised once per device, and the
 //   launch sets the cluster size with cudaLaunchKernelEx.
+//
+// The bf16 instance (residual_unit_bf16_forward) computes the Pallas
+// kernel's contract for bf16 operands (x, W1, b1, W2, b2 and the output
+// all bf16): lrelu(x) in bf16 (the slope rounded to bf16, 0.2001953125,
+// as JAX reads 0.2 beside a bf16 array, and 0.2 * x rounded to bf16),
+// GEMM 1 accumulated in float32, + b1 and lrelu in float32, ONE rounding
+// of the hidden tile to bf16, GEMM 2 accumulated in float32, + b2 and the
+// residual x in float32, ONE rounding at the output.  Same design as the
+// float32 instance, with mma.sync.m16n8k16 on bf16 operands (one pass
+// where 3xTF32 takes three) and half the bytes staged: 16-byte cp.async
+// pieces of 8 values where T % 8 == 0, element copies otherwise; lrelu
+// is applied to each staged x window in place, once per chunk; the
+// hidden tile is bf16 in shared memory and reaches the peers through
+// distributed shared memory in 16-byte pieces; chunks of 32 input
+// channels (16 where a wide window must fit: at k = 3 up to d = 1560).
+// Bound: 2*B*T*C^2*(k+1) FLOPs on 989 TFLOP/s of dense bf16 against
+// 2*(2*B*T*C + (k+1)*C^2 + 2*C) bytes, so again the arithmetic.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -120,7 +138,7 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src)
@@ -197,14 +215,23 @@ __device__ __forceinline__ void mma_k8(float (*acc)[kNT][4], const float* a,
     for (int nt = 0; nt < kNT; ++nt) mma(acc[mt][nt], ah[mt], bh[nt]);
 }
 
+__device__ __forceinline__ float to_f32(float v) { return v; }
+
+// a bf16 value's bits
+__device__ __forceinline__ float to_f32(uint16_t v) {
+  return __uint_as_float(static_cast<uint32_t>(v) << 16);
+}
+
 // dst (64 x 64, row stride kHs) = act(group 0's + group 1's accumulators
 // + bias[row]); act is lrelu or nothing.  The fragment holds rows gid and
 // gid + 8, columns 2*tig and 2*tig + 1 of each 16 x 8 tile.  Group 1
-// writes its sum first; the caller syncs before anyone reads dst.
+// writes its sum first; the caller syncs before anyone reads dst.  The
+// bias is float32 or bf16 (its bits), the sums float32 either way.
+template <typename Bias>
 __device__ __forceinline__ void reduce_groups(float (*acc)[kNT][4],
                                               float* dst, int grp, int wm,
                                               int wt, int gid, int tig,
-                                              const float* bias,
+                                              const Bias* bias,
                                               bool act) {
   auto each = [&](auto&& fn) {
 #pragma unroll
@@ -224,7 +251,8 @@ __device__ __forceinline__ void reduce_groups(float (*acc)[kNT][4],
   __syncthreads();
   if (grp == 0) each([&](float2* d, const float* a, int r) {
     const float2 o = *d;
-    float v0 = a[0] + o.x + bias[r], v1 = a[1] + o.y + bias[r];
+    const float b = to_f32(bias[r]);
+    float v0 = a[0] + o.x + b, v1 = a[1] + o.y + b;
     if (act) {
       v0 = lrelu(v0);
       v1 = lrelu(v1);
@@ -496,6 +524,321 @@ cudaError_t launch(const Plan& p, const float* x, const float* w1k,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------
+// bf16 instance
+// ---------------------------------------------------------------------
+
+constexpr float kNegSlopeBf16 = 0.2001953125f;  // 0.2 rounded to bf16
+constexpr int kHsB = kTile + 8;   // row stride (bf16) of the hidden tile
+constexpr int kWs2B = kKC2 + 8;   // row stride (bf16) of a W2 chunk
+
+__device__ __forceinline__ uint16_t f2bf(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ uint32_t pack2(uint16_t lo, uint16_t hi) {
+  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
+}
+
+__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One warp's 32 x (8 kNT) product over 16 of K, bf16 operands: A
+// (channels x K, K contiguous) from `a` with row stride `as`, B (K x time,
+// time contiguous) from `bm` with row stride `bs`; the B fragment pairs
+// two rows of K into one register.
+__device__ __forceinline__ void mma_k16(float (*acc)[kNT][4],
+                                        const uint16_t* a, int as,
+                                        const uint16_t* bm, int bs, int gid,
+                                        int tig) {
+  uint32_t af[2][4], bf[kNT][2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const uint16_t* p = a + (mt * 16 + gid) * as + 2 * tig;
+    af[mt][0] = ld32(p);
+    af[mt][1] = ld32(p + 8 * as);
+    af[mt][2] = ld32(p + 8);
+    af[mt][3] = ld32(p + 8 * as + 8);
+  }
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) {
+    const uint16_t* p = bm + 2 * tig * bs + nt * 8 + gid;
+    bf[nt][0] = pack2(p[0], p[bs]);
+    bf[nt][1] = pack2(p[8 * bs], p[9 * bs]);
+  }
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) mma_bf16(acc[mt][nt], af[mt], bf[nt]);
+}
+
+// Window row stride (bf16 values): the least S >= W + 14 (the window, up
+// to 7 values of alignment shift and the round-up to a 16-byte piece)
+// with S = 8 (mod 64), so that a B fragment's rows 2*tig fall in
+// distinct 4-bank groups.
+__host__ __device__ inline int window_stride_bf16(int k, int dilation) {
+  const int w = kTile + (k - 1) * dilation + 14;
+  return ((w + 55) / 64) * 64 + 8;
+}
+
+// Bytes of dynamic shared memory: the bf16 hidden tile, then the largest
+// of GEMM 1's double buffers, GEMM 2's, and the float32 tile that the
+// group reduction and the epilogue stage.
+__host__ __device__ inline int smem_bytes_bf16(int kc, int k, int dilation) {
+  const int g1 = 2 * (2 * kc * window_stride_bf16(k, dilation) +
+                      2 * k * kGroup * (kc + 8));
+  const int g2 = 2 * (2 * kKC2 * kHsB + 2 * kGroup * kWs2B);
+  const int f = 4 * kGroup * kHs;
+  const int r = g1 > g2 ? g1 : g2;
+  return 2 * kGroup * kHsB + (r > f ? r : f);
+}
+
+template <int KC>
+__global__ void __launch_bounds__(kThreads)
+    residual_unit_bf16_kernel(const uint16_t* __restrict__ x,
+                              const uint16_t* __restrict__ w1k,
+                              const uint16_t* __restrict__ b1,
+                              const uint16_t* __restrict__ w2,
+                              const uint16_t* __restrict__ b2,
+                              uint16_t* __restrict__ out, int C, int T,
+                              int k, int dilation, int pad_left) {
+  constexpr int kWsB = KC + 8;  // W1 chunk row stride (bf16)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+
+  const int win = kTile + (k - 1) * dilation;
+  const int xs = window_stride_bf16(k, dilation);
+  uint16_t* hs = reinterpret_cast<uint16_t*>(smem_raw);  // [64][kHsB]
+  unsigned char* region = smem_raw + 2 * kGroup * kHsB;
+  uint16_t* xbuf = reinterpret_cast<uint16_t*>(region);  // [2][KC][xs]
+  uint16_t* wbuf = xbuf + 2 * KC * xs;                   // [2][k][64][kWsB]
+  uint16_t* hbuf = reinterpret_cast<uint16_t*>(region);  // [2][32][kHsB]
+  uint16_t* w2buf = hbuf + 2 * kKC2 * kHsB;              // [2][64][kWs2B]
+  float* ftile = reinterpret_cast<float*>(region);       // [64][kHs]
+
+  const int group = static_cast<int>(cluster.block_rank());
+  const int co0 = group * kGroup;
+  const int t0 = blockIdx.x * kTile;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int grp = warp >> 2;
+  const int wm = (warp >> 1) & 1, wn = warp & 1;
+  const int wt = wn * kNT * 8;
+  const uint16_t* xb = x + static_cast<size_t>(b) * C * T;
+
+  // ---- GEMM 1 ----
+  const bool xvec =
+      T % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const int xshift = xvec ? ((t0 - pad_left) & 7) : 0;
+  const int xstart = t0 - pad_left - xshift;
+  const int wcols = xshift + win;  // staged values of a window row
+  auto stage1 = [&](int chunk, int s) {
+    const int ci0 = chunk * KC;
+    uint16_t* xd = xbuf + s * KC * xs;
+    for (int r = warp; r < KC; r += kWarps) {
+      const uint16_t* src = xb + static_cast<size_t>(ci0 + r) * T;
+      uint16_t* dst = xd + r * xs;
+      if (xvec) {
+        for (int c = 8 * lane; c < wcols; c += 256) {
+          const int t = xstart + c;
+          if (t >= 0 && t + 8 <= T) {
+            cp_async16(dst + c, src + t);
+          } else {
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+              dst[c + i] = (t + i >= 0 && t + i < T) ? src[t + i] : 0;
+          }
+        }
+      } else {
+        for (int c = lane; c < win; c += 32) {
+          const int t = xstart + c;
+          dst[c] = (t >= 0 && t < T) ? src[t] : 0;
+        }
+      }
+    }
+    constexpr int kQ = KC / 8;  // 16-byte pieces per weight row
+    uint16_t* wd = wbuf + s * k * kGroup * kWsB;
+    for (int i = tid; i < k * kGroup * kQ; i += kThreads) {
+      const int row = i / kQ, q = i % kQ;  // row = j * 64 + m
+      const int j = row / kGroup, m = row % kGroup;
+      cp_async16(wd + row * kWsB + 8 * q,
+                 w1k + (static_cast<size_t>(j) * C + co0 + m) * C + ci0 +
+                     8 * q);
+    }
+    cp_async_commit();
+  };
+
+  float acc[2][kNT][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  const int n1 = C / KC;
+  stage1(0, 0);
+  for (int chunk = 0; chunk < n1; ++chunk) {
+    const int s = chunk & 1;
+    if (chunk + 1 < n1) {
+      stage1(chunk + 1, s ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    // lrelu of the staged window, in place, rounded to bf16
+    uint16_t* xw = xbuf + s * KC * xs;
+    for (int i = tid; i < KC * wcols; i += kThreads) {
+      uint16_t* p = xw + (i / wcols) * xs + i % wcols;
+      const float v = to_f32(*p);
+      if (v < 0.f) *p = f2bf(kNegSlopeBf16 * v);
+    }
+    __syncthreads();
+    const uint16_t* xd = xw + xshift + wt;
+    const uint16_t* wd = wbuf + s * k * kGroup * kWsB + wm * 32 * kWsB;
+    for (int p = grp; p < k * (KC / 16); p += 2) {
+      const int j = p / (KC / 16), kk = p % (KC / 16);
+      mma_k16(acc, wd + j * kGroup * kWsB + kk * 16, kWsB,
+              xd + kk * 16 * xs + j * dilation, xs, gid, tig);
+    }
+    __syncthreads();
+  }
+
+  // hidden tile = bf16(lrelu(group 0 + group 1 + b1)): summed in float32
+  // in the staging tile, then rounded once
+  reduce_groups(acc, ftile, grp, wm, wt, gid, tig, b1 + co0, true);
+  __syncthreads();
+  for (int i = tid; i < kGroup * kTile; i += kThreads) {
+    const int r = i / kTile, c = i % kTile;
+    hs[r * kHsB + c] = f2bf(ftile[r * kHs + c]);
+  }
+  __syncthreads();
+
+  // ---- GEMM 2 ----
+  auto stage_w2 = [&](int chunk, int s) {
+    uint16_t* wd = w2buf + s * kGroup * kWs2B;
+    for (int i = tid; i < kGroup * (kKC2 / 8); i += kThreads) {
+      const int m = i / (kKC2 / 8), q = i % (kKC2 / 8);
+      cp_async16(wd + m * kWs2B + 8 * q,
+                 w2 + static_cast<size_t>(co0 + m) * C + chunk * kKC2 +
+                     8 * q);
+    }
+    cp_async_commit();
+  };
+  // 32 hidden rows of a peer = 256 pieces of 16 bytes, one per thread
+  uint4 hreg;
+  auto load_h = [&](int chunk) {
+    const uint16_t* peer =
+        cluster.map_shared_rank(hs, (chunk * kKC2) / kGroup);
+    const uint16_t* src = peer + ((chunk * kKC2) % kGroup) * kHsB;
+    hreg = *reinterpret_cast<const uint4*>(src + (tid >> 3) * kHsB +
+                                           8 * (tid & 7));
+  };
+  auto store_h = [&](int s) {
+    uint16_t* dst = hbuf + s * kKC2 * kHsB;
+    *reinterpret_cast<uint4*>(dst + (tid >> 3) * kHsB + 8 * (tid & 7)) =
+        hreg;
+  };
+
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  const int n2 = C / kKC2;
+  stage_w2(0, 0);
+  cluster.sync();  // every hidden tile of the cluster is written
+  load_h(0);
+  store_h(0);
+  for (int chunk = 0; chunk < n2; ++chunk) {
+    const int s = chunk & 1;
+    const bool more = chunk + 1 < n2;
+    if (more) {
+      stage_w2(chunk + 1, s ^ 1);
+      load_h(chunk + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint16_t* hd = hbuf + s * kKC2 * kHsB + wt;
+    const uint16_t* wd = w2buf + s * kGroup * kWs2B + wm * 32 * kWs2B;
+    // kKC2 / 16 = 2 steps: one per group
+    mma_k16(acc, wd + grp * 16, kWs2B, hd + grp * 16 * kHsB, kHsB, gid,
+            tig);
+    if (more) store_h(s ^ 1);
+    __syncthreads();
+  }
+
+  // ---- epilogue: out = bf16(x + (acc + b2)), stored along time ----
+  reduce_groups(acc, ftile, grp, wm, wt, gid, tig, b2 + co0, false);
+  __syncthreads();
+  for (int m = warp; m < kGroup; m += kWarps) {
+    const size_t row = static_cast<size_t>(b) * C * T +
+                       static_cast<size_t>(co0 + m) * T;
+#pragma unroll
+    for (int c = lane; c < kTile; c += 32) {
+      const int t = t0 + c;
+      if (t < T) out[row + t] = f2bf(to_f32(x[row + t]) + ftile[m * kHs + c]);
+    }
+  }
+  cluster.sync();  // peers have finished reading this CTA's hidden tile
+}
+
+Plan plan_for_bf16(int B, int C, int T, int k, int dilation) {
+  Plan p{0, 0, dim3((T + kTile - 1) / kTile, (C + kGroup - 1) / kGroup, B),
+         (C + kGroup - 1) / kGroup};
+  for (int kc : {32, 16}) {
+    const size_t bytes = smem_bytes_bf16(kc, k, dilation);
+    if (bytes <= static_cast<size_t>(kMaxSmem)) {
+      p.kc = kc;
+      p.smem = bytes;
+      break;
+    }
+  }
+  return p;
+}
+
+template <int KC>
+cudaError_t launch_bf16(const Plan& p, const uint16_t* x,
+                        const uint16_t* w1k, const uint16_t* b1,
+                        const uint16_t* w2, const uint16_t* b2,
+                        uint16_t* out, int C, int T, int k, int dilation,
+                        int pad_left, cudaStream_t stream) {
+  cudaError_t err = max_smem_once<residual_unit_bf16_kernel<KC>>();
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = p.grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = p.cluster;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, residual_unit_bf16_kernel<KC>, x, w1k, b1,
+                           w2, b2, out, C, T, k, dilation, pad_left);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Launch on `stream`; returns the cudaError_t of the launch.  The caller
@@ -551,4 +894,55 @@ extern "C" int residual_unit_launch_info(int B, int C, int T, int k,
 
 extern "C" const char* residual_unit_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// The bf16 instance: the same contract over bf16 tensors (bf16 bits as
+// uint16_t); a window too wide for chunks of 16 input channels returns
+// cudaErrorInvalidValue.
+extern "C" int residual_unit_bf16_forward(const uint16_t* x,
+                                          const uint16_t* w1k,
+                                          const uint16_t* b1,
+                                          const uint16_t* w2,
+                                          const uint16_t* b2, uint16_t* out,
+                                          int B, int C, int T, int k,
+                                          int dilation, int pad_left,
+                                          void* stream) {
+  if (C % kGroup || C > 8 * kGroup || B < 1 || T < 1 || k < 1)
+    return cudaErrorInvalidValue;
+  const Plan p = plan_for_bf16(B, C, T, k, dilation);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (p.kc) {
+    case 32:
+      return launch_bf16<32>(p, x, w1k, b1, w2, b2, out, C, T, k, dilation,
+                             pad_left, s);
+    case 16:
+      return launch_bf16<16>(p, x, w1k, b1, w2, b2, out, C, T, k, dilation,
+                             pad_left, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// residual_unit_launch_info for the bf16 instance.
+extern "C" int residual_unit_bf16_launch_info(int B, int C, int T, int k,
+                                              int dilation, int* info) {
+  const Plan p = plan_for_bf16(B, C, T, k, dilation);
+  cudaFuncAttributes attr = {};
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (p.kc) {
+    case 32:
+      err = cudaFuncGetAttributes(&attr, residual_unit_bf16_kernel<32>);
+      break;
+    case 16:
+      err = cudaFuncGetAttributes(&attr, residual_unit_bf16_kernel<16>);
+      break;
+  }
+  if (err != cudaSuccess) return err;
+  info[0] = static_cast<int>(p.grid.x * p.grid.y * p.grid.z);
+  info[1] = p.cluster;
+  info[2] = kThreads;
+  info[3] = static_cast<int>(p.smem);
+  info[4] = attr.numRegs;
+  info[5] = p.kc;
+  return cudaSuccess;
 }

@@ -35,6 +35,11 @@ Options: fake stereo (one encode, the decoder run on the batch-duplicated
 latent with its own caches, the two decodes as the two channels) and a
 host rate ``target_sr`` (streaming resampler stages on both sides of the
 model); the latent PCA of the variational head.
+
+Under ``compute_dtype=bfloat16`` every cache keeps the dtype its module
+built it in (bf16 in the trunk, float32 for the PQMF, the mel front end,
+AdaIN's state and what follows a float32 promotion), as the JAX
+package's caches do; audio in and out stays float32.
 """
 
 from __future__ import annotations
@@ -114,7 +119,8 @@ class StreamingRAVE:
                     raise ValueError(
                         f"AdaIN state {i}: {tuple(a.shape)} for "
                         f"{tuple(self.init_caches[n + i].shape)}")
-                self.init_caches[n + i] = a.to(dev, torch.float32).clone()
+                self.init_caches[n + i] = a.to(
+                    dev, self.init_caches[n + i].dtype).clone()
         self._forward = StreamStep(m, m.forward, self.cache_modules)
         self._encode = StreamStep(m, m.encode, self.cache_modules)
         self._decode = StreamStep(m, m.decode, self.cache_modules)
@@ -403,8 +409,11 @@ class StreamingRAVE:
           ``(caches, x) -> (y, caches)`` (reload with
           ``torch.export.load(path).module()``);
         * ``cache_init.npz`` (keys ``c0..cN`` in manifest order: zero
-          caches, then the initial AdaIN states) and ``cache_init.bin``
-          (the same, raw little-endian);
+          caches, then the initial AdaIN states; numpy has no bf16, so
+          where a cache is bf16 it holds its 16-bit patterns as
+          ``uint16`` and a ``dtypes`` key names every cache's dtype, read
+          back by :func:`load_cache_init`) and ``cache_init.bin`` (the
+          same, raw little-endian, each cache in its own dtype);
         * ``io_manifest.txt``: ``meta <chunk> <sr> <batch>``, then one
           ``in`` line per cache and the chunk, one ``out`` line for ``y``
           and per cache (dtype, bytes, rank, dims);
@@ -426,8 +435,7 @@ class StreamingRAVE:
         write_manifest(out, "forward", [*caches, x], [y, *new], caches,
                        chunk=self.chunk, sampling_rate=cfg.sampling_rate,
                        batch=self.batch)
-        np.savez(out / "cache_init.npz",
-                 **{f"c{i}": c.cpu().numpy() for i, c in enumerate(caches)})
+        save_cache_init(out / "cache_init.npz", caches)
         meta = dict(chunk_size=self.chunk, batch=self.batch,
                     sampling_rate=cfg.sampling_rate,
                     total_delay_samples=int(self.total_delay_samples()),
@@ -445,7 +453,43 @@ def _draw(mods: list, caches: list, generator) -> None:
     for i, m in enumerate(mods):
         if isinstance(m, StreamDraw):
             caches[i] = m.sample(caches[i].shape, generator,
-                                 caches[i].device)
+                                 caches[i].device, caches[i].dtype)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """``t`` on the host as numpy: a bf16 tensor as its 16-bit patterns
+    (``uint16``)."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def save_cache_init(path: Path, caches: list) -> None:
+    """``caches`` as ``c0..cN`` in ``path`` (npz); where one is bf16, as
+    its bit patterns beside a ``dtypes`` key (see :func:`load_cache_init`).
+    An all-float32 carry is written as plain arrays, without the key."""
+    arrays = {f"c{i}": _numpy(c) for i, c in enumerate(caches)}
+    if any(c.dtype != torch.float32 for c in caches):
+        arrays["dtypes"] = np.array(
+            [str(c.dtype).removeprefix("torch.") for c in caches])
+    np.savez(path, **arrays)
+
+
+def load_cache_init(path, device="cpu") -> list:
+    """The caches of a ``cache_init.npz`` as tensors on ``device``, each
+    in its dtype."""
+    with np.load(path) as f:
+        n = sum(k != "dtypes" for k in f.files)
+        names = (list(f["dtypes"]) if "dtypes" in f.files
+                 else ["float32"] * n)
+        out = []
+        for i, name in enumerate(names):
+            a = torch.from_numpy(np.array(f[f"c{i}"]))
+            if name == "bfloat16":
+                a = a.view(torch.int16).view(torch.bfloat16)
+            out.append(a.to(device))
+    return out
 
 
 def export_step(step: StreamStep, args: tuple, path: Path) -> None:
@@ -459,8 +503,9 @@ def write_manifest(out: Path, prefix: str, inputs, outputs, caches, *,
     """The flat call convention of an exported step, in the JAX package's
     format (``write_pjrt_artifacts``): ``io_manifest.txt`` for
     ``forward``, else ``<prefix>_manifest.txt``, one line per input
-    tensor then per output tensor; and the initial ``caches``
-    concatenated raw little-endian in manifest order
+    tensor then per output tensor (``float32`` or ``bfloat16``, bytes,
+    rank, dims); and the initial ``caches`` concatenated raw
+    little-endian in manifest order, each in its own dtype
     (``cache_init.bin``, else ``<prefix>_cache_init.bin``)."""
     lines = [f"meta {chunk} {sampling_rate} {batch}"]
     for kind, tensors in (("in", inputs), ("out", outputs)):
@@ -475,7 +520,9 @@ def write_manifest(out: Path, prefix: str, inputs, outputs, caches, *,
     with open(out / ("cache_init.bin" if first
                      else f"{prefix}_cache_init.bin"), "wb") as f:
         for c in caches:
-            f.write(np.ascontiguousarray(c.cpu().numpy(), "<f4").tobytes())
+            a = _numpy(c)
+            f.write(np.ascontiguousarray(a, a.dtype.newbyteorder("<"))
+                    .tobytes())
 
 
 def _tuples(v):
@@ -485,7 +532,10 @@ def _tuples(v):
 def load_run(run_dir: str, best: bool = False, device="cuda"):
     """The config and the train state of a run written by the port's
     trainer: ``config.json`` and the latest checkpoint (the best-
-    validation one with ``best``), restored onto ``device``."""
+    validation one with ``best``), restored onto ``device``.  The state
+    is built in float32 whatever the config's ``compute_dtype`` (the
+    parameters are float32 either way)."""
+    import dataclasses
     from ..train.checkpoint import CheckpointManager
     from ..train.loop import TrainState
 
@@ -496,7 +546,8 @@ def load_run(run_dir: str, best: bool = False, device="cuda"):
     if dc:
         cfg.discriminator = DiscriminatorConfig(
             **{k: _tuples(v) for k, v in dc.items()})
-    state = TrainState(cfg, device=device)
+    state = TrainState(dataclasses.replace(cfg, compute_dtype="float32"),
+                       device=device)
     ckpt = CheckpointManager(run)
     if best:
         ckpt.restore_best(state)
@@ -517,11 +568,15 @@ def run_params(state) -> dict:
 def export_main(args) -> None:
     """The ``export`` command: the streaming steps of a run under
     ``<run>/export``, and with ``--voice_conversion`` the conversion step
-    and the speaker table of ``--speaker_wavs``."""
+    and the speaker table of ``--speaker_wavs``; with ``--compute_dtype``
+    the trunk serves in that dtype (default: the run's)."""
+    import dataclasses
     from ..train.latent_stats import load_latent_stats
     device = getattr(args, "device", "cuda")
     cfg, state = load_run(args.run, best=getattr(args, "best", False),
                           device=device)
+    if getattr(args, "compute_dtype", None):
+        cfg = dataclasses.replace(cfg, compute_dtype=args.compute_dtype)
     params = run_params(state)
     del state
     sr = StreamingRAVE(cfg, params, chunk_size=args.chunk_size,

@@ -12,6 +12,13 @@ controls too, the noise generators' uniform draw, fixed over a stream,
 the GRU's hidden states and the mel front end's sample context).
 Modules are registered in the order the JAX package creates them, which
 :mod:`rave_tpu_torch.convert` relies on.
+
+Dtypes follow the JAX package's flow: a block computes in its input's
+dtype (bf16 under ``compute_dtype=bfloat16``, :mod:`rave_tpu_torch.ops.
+precision`), its float32 parameters cast per call, and promotes to
+float32 where flax does: AdaIN's float32 statistics (outside training),
+BatchNorm's float32 parameters, the noise branch's float32 impulse
+response.  What follows a promotion runs in float32.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from ..ops.conv import (Cached, Conv1d, ConvTranspose1d, Delay, StreamDraw,
 from ..ops.delay import get_padding, plan_conv, plan_conv_transpose
 from ..ops.kernels.residual_unit import residual_unit
 from ..ops.losses import amp_to_impulse_response, fft_convolve, mod_sigmoid
+from ..ops.precision import leaky_relu, sigmoid, weak
 from ..ops.stft import hann_window, mel_matrix, stft
 from ..parallel import mesh
 
@@ -78,9 +86,9 @@ class Activation(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.kind == "leaky_relu":
-            return F.leaky_relu(x, self.negative_slope)
+            return leaky_relu(x, self.negative_slope)
         alpha = self.alpha.to(x.dtype)[:, None]
-        return x + (1.0 / (alpha + 1e-9)) * torch.sin(alpha * x) ** 2
+        return x + (1.0 / (alpha + weak(1e-9, x))) * torch.sin(alpha * x) ** 2
 
 
 class AdaIN(Cached):
@@ -97,7 +105,9 @@ class AdaIN(Cached):
     learning wins.  Once both have statistics and ``learn_y`` is off, the
     output is ``(x - mean_x) / (std_x + 1e-5) * std_y + mean_y``.  An
     offline pass reads a state it was given and updates nothing; without
-    one it is the identity (no statistics yet).
+    one it is the identity (no statistics yet).  The state is float32
+    whatever ``x`` is, and outside training the output is float32 too
+    (flax's promotion of a bf16 ``x`` against float32 statistics).
     """
 
     SLOTS = ("mean_x", "std_x", "mean_y", "std_y", "num_update_x",
@@ -126,12 +136,13 @@ class AdaIN(Cached):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.train_mode:
             return x
+        dtype = torch.promote_types(x.dtype, torch.float32)
         state = self.cache
         if state is None:
             if not self.ss.streaming:
-                return x
+                return x.to(dtype)
             state = self.initial_state(x.shape[0], self.dim, x.device,
-                                       x.dtype)
+                                       dtype)
 
         def slot(k):
             return state[..., k:k + 1]
@@ -173,7 +184,9 @@ class BatchNorm(nn.Module):
     the stored ones to ``0.99 * r + 0.01 * batch``; the update happens
     under ``no_grad`` too, as a flax D step's does.  ``F.batch_norm``'s
     training mode differs (unbiased variance in the update, momentum 0.1).
-    ``train()`` and ``eval()`` change nothing: ``train_bn`` decides."""
+    ``train()`` and ``eval()`` change nothing: ``train_bn`` decides.  A
+    bf16 ``x`` is promoted to float32 first, as flax promotes it against
+    the float32 parameters."""
 
     def __init__(self, channels: int, eps: float = 1e-5,
                  momentum: float = 0.99):
@@ -186,6 +199,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(torch.promote_types(x.dtype, self.weight.dtype))
         if not self.train_bn:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
@@ -332,9 +346,13 @@ class Residual(nn.Module):
         du = self.inner
         if self.fused and du.fusable(x.shape[1]):
             pl, pr = get_padding(du.kernel_size, 1, du.dilation, self.ss.mode)
-            return residual_unit(x, du.conv1.kernel(), du.conv1.bias,
-                                 du.conv2.kernel()[:, :, 0], du.conv2.bias,
-                                 du.dilation, pl, pr)
+            # every operand in x's dtype, as Conv1d(return_weights=True)
+            # hands them to the Pallas kernel
+            d = x.dtype
+            return residual_unit(x, du.conv1.kernel().to(d),
+                                 du.conv1.bias.to(d),
+                                 du.conv2.kernel()[:, :, 0].to(d),
+                                 du.conv2.bias.to(d), du.dilation, pl, pr)
         return du(x) + self.skip(x)
 
 
@@ -579,7 +597,7 @@ class GeneratorV2(nn.Module):
         wave = conv(x)
         if self.amplitude_modulation:
             wav, amp = wave.chunk(2, dim=1)
-            wave = wav * torch.sigmoid(amp)
+            wave = wav * sigmoid(amp)
         if self.noise is not None:
             wave = wave + self.noise(x, noise, generator)
         return torch.tanh(wave)
@@ -592,7 +610,10 @@ class SampleNorm(nn.Module):
     """Each frame divided by its L2 norm over the channels."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
+        if x.dtype in (torch.float32, torch.float64):
+            return x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
+        # bf16: the squares rounded, then summed, as jnp.linalg.norm does
+        return x / torch.sqrt(torch.sum(x * x, dim=1, keepdim=True))
 
 
 class ResidualLayer(nn.Module):

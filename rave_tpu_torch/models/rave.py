@@ -36,6 +36,13 @@ decoder latent also carries the normalised f0 of the input audio
 statistics): in ``encode`` and ``convert`` (the source's f0, the
 target's timbre).
 
+``compute_dtype=bfloat16`` runs the encoder on its features cast to
+bf16 and the decoder on the latent cast to bf16, each output cast back
+to float32 (the JAX package's ``encode_input`` / ``decode_bands``); the
+parameters stay float32 and are cast per call, so checkpoints, the
+converter and the state dicts do not change.  PQMF, the latent heads,
+the speaker encoder, the unit projection and f0 stay float32.
+
 Options outside the port raise ``NotImplementedError`` naming the
 ROADMAP item that ports them.
 """
@@ -52,6 +59,7 @@ from .. import resolve_device
 from ..config import RAVEConfig
 from ..ops.conv import StreamDraw, StreamSetup
 from ..ops.pitch import pitch_feature
+from ..ops.precision import compute_dtype
 from ..ops.pqmf import PQMF, _pqmf_kernels
 from .blocks import (AdaIN, BatchNorm, EncoderV1, EncoderV2, GeneratorV1,
                      GeneratorV2, MelFrontEnd, mel_front_delay)
@@ -65,11 +73,17 @@ HEADS = ("variational", "wasserstein", "spherical", "discrete")
 
 
 def check_supported(cfg: RAVEConfig) -> None:
-    """Raise ``NotImplementedError`` for options this slice lacks."""
-    if cfg.compute_dtype != "float32":
+    """Raise for options the port does not build.  bf16 with GRU
+    layers (``hybrid``) raises ``NotImplementedError``: the JAX package
+    cannot run it (flax's GRU cell promotes a bf16 input to float32,
+    and its scan refuses a carry that changes dtype), so there is no
+    behaviour to port (ROADMAP C)."""
+    if (compute_dtype(cfg.compute_dtype) != torch.float32
+            and (cfg.encoder_gru_layers or cfg.decoder_gru_layers)):
         raise NotImplementedError(
-            f"compute_dtype {cfg.compute_dtype!r} is not ported to "
-            "rave_tpu_torch yet (ROADMAP A10)")
+            f"compute_dtype {cfg.compute_dtype!r} with GRU layers: the JAX "
+            "package's GRU scan cannot carry bfloat16 (its cell promotes "
+            "to float32), so there is nothing to port (ROADMAP C)")
     if cfg.latent_head not in HEADS:
         raise ValueError(f"unknown latent head {cfg.latent_head!r}")
     for part in ("encoder_version", "generator_version"):
@@ -252,6 +266,7 @@ class RAVE(nn.Module):
         device = resolve_device(device)
         self.cfg = cfg
         self.streaming = streaming
+        self.dtype = compute_dtype(cfg.compute_dtype)
         ss = stream_setup(cfg, streaming)
         self.mel_frontend = (MelFrontEnd(cfg.mel_n_fft, cfg.mel_hop,
                                          cfg.mel_n_mels, cfg.sampling_rate, ss)
@@ -326,10 +341,21 @@ class RAVE(nn.Module):
         """Bands -> pre-regularisation latent ``(B, n_out * latent, T_z)``
         from the first ``encoder_data_size`` bands; a mel config reads
         the log1p mel spectrogram of the audio ``x`` ``(B, T, 1)`` instead
-        (its bands may be None)."""
+        (its bands may be None).  The encoder runs in the compute dtype;
+        its output is float32."""
         if self.mel_frontend is not None:
-            return self.encoder(self.mel_frontend(x[..., 0]))
-        return self.encoder(bands[:, :self.cfg.effective_encoder_data_size()])
+            feats = self.mel_frontend(x[..., 0])
+        else:
+            feats = bands[:, :self.cfg.effective_encoder_data_size()]
+        return self._from_trunk(self.encoder(self._to_trunk(feats)))
+
+    def _to_trunk(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` in the compute dtype; under float32 unchanged (a float64
+        copy of the model stays float64)."""
+        return t if self.dtype == torch.float32 else t.to(self.dtype)
+
+    def _from_trunk(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.dtype == torch.float32 else t.float()
 
     def input_bands(self, x: torch.Tensor) -> Optional[torch.Tensor]:
         """The bands of ``x`` where inference reads them (the encoder or
@@ -509,10 +535,14 @@ class RAVE(nn.Module):
                      warmed_up=True) -> torch.Tensor:
         """Latent ``(B, C, T_z)`` -> bands ``(B, M, T/M)``.  ``noise`` (or
         ``generator``) is the noise branch's uniform draw, whose output
-        GeneratorV1 gates by ``warmed_up``."""
+        GeneratorV1 gates by ``warmed_up``.  The decoder runs in the
+        compute dtype; the bands are float32."""
+        z = self._to_trunk(z)
         if isinstance(self.decoder, GeneratorV1):
-            return self.decoder(z, noise, generator, warmed_up)
-        return self.decoder(z, noise, generator)
+            y = self.decoder(z, noise, generator, warmed_up)
+        else:
+            y = self.decoder(z, noise, generator)
+        return self._from_trunk(y)
 
     def decode(self, z: torch.Tensor, aug: Optional[torch.Tensor] = None,
                noise: Optional[torch.Tensor] = None,

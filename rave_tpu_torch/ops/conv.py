@@ -13,6 +13,12 @@ Parameters keep the PyTorch layouts: ``Conv1d`` weights ``(out, in/g, k)``,
 here by hand, per OUTPUT channel for both kinds of conv, with the JAX
 package's ``1e-12`` under the square root; ``torch.nn.utils.weight_norm``
 would normalise a transposed conv per input channel.
+
+A conv computes in its input's dtype: the float32 parameters are cast per
+call, as flax's ``Conv1d`` does.  In bf16 the conv's output is rounded to
+bf16 and the bias is added after it, in bf16 (a second rounding, as in
+the JAX package); in float32 the bias is part of the conv.  A streaming
+cache starts as zeros in the dtype of the chunk it first meets.
 """
 
 from __future__ import annotations
@@ -139,8 +145,14 @@ class Conv1d(Cached):
                 xx = x
         else:
             xx = F.pad(x, (plan.pad_left, plan.pad_right))
-        return F.conv1d(xx, self.kernel(), self.bias, stride=self.stride,
-                        dilation=self.dilation, groups=self.groups)
+        w = self.kernel().to(x.dtype)
+        if x.dtype != torch.bfloat16 or self.bias is None:
+            bias = None if self.bias is None else self.bias.to(x.dtype)
+            return F.conv1d(xx, w, bias, stride=self.stride,
+                            dilation=self.dilation, groups=self.groups)
+        y = F.conv1d(xx, w, stride=self.stride, dilation=self.dilation,
+                     groups=self.groups)
+        return y + self.bias.to(x.dtype)[:, None]
 
 
 class ConvTranspose1d(Cached):
@@ -186,7 +198,7 @@ class ConvTranspose1d(Cached):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         T, s = x.shape[2], self.stride
-        y_full = F.conv_transpose1d(x, self.kernel(), stride=s)
+        y_full = F.conv_transpose1d(x, self.kernel().to(x.dtype), stride=s)
         if self.ss.streaming:
             tail = self.plan.tail_len
             if tail > 0:
@@ -197,7 +209,7 @@ class ConvTranspose1d(Cached):
         else:
             y = y_full[:, :, self.crop:y_full.shape[2] - self.crop]
         if self.bias is not None:
-            y = y + self.bias[:, None]
+            y = y + self.bias.to(x.dtype)[:, None]
         return y
 
 

@@ -6,6 +6,7 @@ their launch counts.
 """
 
 from .ci1_conv import DX as CI1_CONV_DX, FORWARD as CI1_CONV_FORWARD
-from .residual_unit import KERNEL as RESIDUAL_UNIT
+from .residual_unit import (KERNEL as RESIDUAL_UNIT,
+                            KERNEL_BF16 as RESIDUAL_UNIT_BF16)
 
-KERNELS = [RESIDUAL_UNIT, CI1_CONV_FORWARD, CI1_CONV_DX]
+KERNELS = [RESIDUAL_UNIT, CI1_CONV_FORWARD, CI1_CONV_DX, RESIDUAL_UNIT_BF16]

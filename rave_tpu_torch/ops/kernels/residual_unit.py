@@ -15,6 +15,12 @@ Layouts are the port's: ``x`` ``(B, C, T)``, ``w1`` ``(C, C, k)`` (the
 ``F.conv1d`` weight), ``w2`` ``(C, C)`` as ``(out, in)``.  The kernel reads
 the weights K-major, input channel fastest (:func:`prepare_weights`):
 ``w1`` as ``(k, C_out, C_in)`` and ``w2`` as it is.
+
+The five tensors are all float32 (``KERNEL``, 3xTF32 on the tensor
+cores) or all bf16 (``KERNEL_BF16``, the Pallas kernel's bf16 contract:
+float32 accumulation, the hidden tile and the output each rounded once to
+bf16).  Only serving runs the bf16 instance: the train step refuses
+bf16 (ROADMAP A10b).
 """
 
 from __future__ import annotations
@@ -24,29 +30,48 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ..precision import leaky_relu
 from .build import CudaKernel
 
 NEG_SLOPE = 0.2
 
-KERNEL = CudaKernel(
-    "residual_unit", "residual_unit.cu", "residual_unit_forward",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+KERNEL = CudaKernel("residual_unit", "residual_unit.cu",
+                    "residual_unit_forward", _ARGS)
+KERNEL_BF16 = CudaKernel("residual_unit_bf16", "residual_unit.cu",
+                         "residual_unit_bf16_forward", _ARGS)
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def kernel_for(dtype: torch.dtype) -> CudaKernel:
+    """The kernel instance of an operand dtype."""
+    return KERNEL_BF16 if dtype == torch.bfloat16 else KERNEL
 
 
 def residual_unit_reference(x, w1, b1, w2, b2, dilation: int,
                             pad_left: int, pad_right: int) -> torch.Tensor:
-    """Plain PyTorch composition of the unit (the kernel's twin)."""
-    h = F.pad(F.leaky_relu(x, NEG_SLOPE), (pad_left, pad_right))
-    h = F.leaky_relu(F.conv1d(h, w1, b1, dilation=dilation), NEG_SLOPE)
-    return x + F.conv1d(h, w2[:, :, None], b2)
+    """Plain PyTorch composition of the unit (the kernel's twin).  In
+    bf16 it rounds where the JAX package's ``_reference_impl`` does:
+    lrelu(x) in bf16, each GEMM accumulated in float32 and rounded to
+    bf16, then each bias and the residual added in bf16."""
+    if x.dtype != torch.bfloat16:
+        h = F.pad(F.leaky_relu(x, NEG_SLOPE), (pad_left, pad_right))
+        h = F.leaky_relu(F.conv1d(h, w1, b1, dilation=dilation), NEG_SLOPE)
+        return x + F.conv1d(h, w2[:, :, None], b2)
+    h = F.pad(leaky_relu(x, NEG_SLOPE), (pad_left, pad_right))
+    h = leaky_relu(F.conv1d(h, w1, dilation=dilation) + b1[:, None],
+                   NEG_SLOPE)
+    return x + (F.conv1d(h, w2[:, :, None]) + b2[:, None])
 
 
 def _check(x, w1, b1, w2, b2, dilation, pad_left, pad_right) -> None:
     tensors = (x, w1, b1, w2, b2)
     if any(t.device != x.device for t in tensors):
         raise ValueError("residual_unit: all tensors must be on one device")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("residual_unit: the CUDA kernel takes float32 only")
+    if x.dtype not in DTYPES or any(t.dtype != x.dtype for t in tensors):
+        raise TypeError("residual_unit: the CUDA kernel takes five float32 "
+                        "or five bfloat16 tensors, got "
+                        f"{[str(t.dtype) for t in tensors]}")
     if x.dim() != 3:
         raise ValueError(f"residual_unit: x must be (B, C, T), got {tuple(x.shape)}")
     C = x.shape[1]
@@ -63,8 +88,8 @@ def _check(x, w1, b1, w2, b2, dilation, pad_left, pad_right) -> None:
 
 def prepare_weights(w1, w2):
     """The weight operands as the kernel reads them, K-major (input
-    channel fastest): ``w1k[j, co, ci] = w1[co, ci, j]``, ``(k, C, C)``,
-    and ``w2`` ``(C_out, C_in)`` as it is."""
+    channel fastest), in their own dtype: ``w1k[j, co, ci] = w1[co, ci,
+    j]``, ``(k, C, C)``, and ``w2`` ``(C_out, C_in)`` as it is."""
     return (w1.detach().permute(2, 0, 1).contiguous(),
             w2.detach().contiguous())
 
@@ -82,24 +107,30 @@ def residual_unit_cuda(x, w1, b1, w2, b2, dilation: int, pad_left: int,
     B, C, T = x.shape
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        KERNEL.launch(x.data_ptr(), w1k.data_ptr(), b1.data_ptr(),
+        kernel_for(x.dtype).launch(x.data_ptr(), w1k.data_ptr(), b1.data_ptr(),
                       w2k.data_ptr(), b2.data_ptr(), out.data_ptr(),
                       B, C, T, w1.shape[-1], dilation, pad_left, stream)
     return out
 
 
-def launch_info(B: int, C: int, T: int, k: int, dilation: int) -> dict:
-    """What one launch at this shape uses on the current card: CTAs,
-    cluster size, threads per CTA, dynamic shared memory, registers per
-    thread and the GEMM-1 chunk of input channels."""
+def launch_info(B: int, C: int, T: int, k: int, dilation: int,
+                dtype: torch.dtype = torch.float32) -> dict:
+    """What one launch at this shape uses on the current card (the
+    instance of ``dtype``): CTAs, cluster size, threads per CTA, dynamic
+    shared memory, registers per thread and the GEMM-1 chunk of input
+    channels."""
     info = (ctypes.c_int * 6)()
-    KERNEL.query("residual_unit_launch_info", B, C, T, k, dilation, info)
+    symbol = ("residual_unit_bf16_launch_info" if dtype == torch.bfloat16
+              else "residual_unit_launch_info")
+    kernel_for(dtype).query(symbol, B, C, T, k, dilation, info)
     return dict(zip(("ctas", "cluster", "threads", "smem_bytes",
                      "registers", "chunk"), info))
 
 
 class _ResidualUnit(torch.autograd.Function):
-    """Kernel forward; backward through autograd of the plain composition."""
+    """Kernel forward; backward through autograd of the plain composition
+    in the operands' dtype (in bf16 what the JAX package's VJP computes;
+    no train step runs it yet, ROADMAP A10b)."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, dilation, pad_left, pad_right):

@@ -23,12 +23,15 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel import mesh
+from .precision import sigmoid, weak
 from .stft import mel_matrix, multiscale_stft, stft
 
 
 def mod_sigmoid(x: torch.Tensor) -> torch.Tensor:
-    """``2 sigmoid(x)^2.3 + 1e-7``."""
-    return 2 * torch.sigmoid(x) ** 2.3 + 1e-7
+    """``2 sigmoid(x)^2.3 + 1e-7`` (in bf16 with the constants rounded
+    to bf16 and :func:`~rave_tpu_torch.ops.precision.sigmoid`, as JAX
+    computes it)."""
+    return 2 * sigmoid(x) ** weak(2.3, x) + weak(1e-7, x)
 
 
 def mean_difference(target: torch.Tensor, value: torch.Tensor,

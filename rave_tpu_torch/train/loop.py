@@ -106,6 +106,17 @@ def spk_group(cfg: RAVEConfig) -> tuple:
     return g
 
 
+def check_trainable(cfg: RAVEConfig) -> None:
+    """Raise ``NotImplementedError`` for a config the train step does not
+    run: ``compute_dtype=bfloat16`` (serving only until ROADMAP A10b ports
+    the bf16 discriminator passes and B1's bf16 backward)."""
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"training with compute_dtype {cfg.compute_dtype!r} is not "
+            "ported to rave_tpu_torch yet (ROADMAP A10b); train in float32 "
+            "and serve in bfloat16 (export --compute_dtype bfloat16)")
+
+
 class TrainState:
     """Generator, discriminator, integer step, the optimizers (``spk_opt``
     is None when :func:`spk_group` is empty), the latent noise generator
@@ -120,6 +131,7 @@ class TrainState:
 
     def __init__(self, cfg: RAVEConfig, device="cuda", step: int = 0,
                  seed: int = 0):
+        check_trainable(cfg)
         device = resolve_device(device)
         self.cfg = cfg
         self.model = RAVE(cfg, device=device)
@@ -468,7 +480,9 @@ def make_train_step(cfg: RAVEConfig):
     to the other random tensors of the step (see the module docstring;
     each left out is drawn from ``state.generator``).  Metric values are
     0-d tensors on that device (or 0.0 for an untaken term), plus
-    ``beta`` and ``warmed_up`` of the step taken."""
+    ``beta`` and ``warmed_up`` of the step taken.  A bf16 config raises
+    (:func:`check_trainable`)."""
+    check_trainable(cfg)
 
     def train_step(state: TrainState, batch: Mapping,
                    eps: Optional[torch.Tensor] = None, sampler=None,

@@ -20,6 +20,16 @@ from rave_tpu.ops.pallas.ci1_conv import (_pallas_dx, _pallas_fwd,
 from rave_tpu_torch.ops.kernels import ci1_conv
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One PyTorch thread: beside the suite's other workers, more
+    oversubscribe the cores (ROADMAP A, Tier-1 room)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(B, T, k, co, seed):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((B, T, 1)).astype(np.float32)

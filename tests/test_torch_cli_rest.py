@@ -47,6 +47,23 @@ TINY = ["capacity=4", "n_signal=8192", "ratios=[2,2]",
         "dilations=[[1,3],[1,3]]"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One PyTorch thread: beside the suite's other workers, more
+    oversubscribe the cores (ROADMAP A, Tier-1 room)."""
+    threads = torch.get_num_threads()
+    omp = os.environ.get("OMP_NUM_THREADS")
+    torch.set_num_threads(1)
+    # and in the subprocesses this module starts
+    os.environ["OMP_NUM_THREADS"] = "1"
+    yield
+    torch.set_num_threads(threads)
+    if omp is None:
+        os.environ.pop("OMP_NUM_THREADS")
+    else:
+        os.environ["OMP_NUM_THREADS"] = omp
+
+
 @pytest.fixture(scope="module")
 def db(tmp_path_factory):
     """Two speakers x one 16384-sample clip: four 8192-sample items."""

@@ -13,6 +13,16 @@ from rave_tpu_torch.convert import load_conv_params
 ATOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One PyTorch thread: beside the suite's other workers, more
+    oversubscribe the cores (ROADMAP A, Tier-1 room)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _x(shape, seed=0):
     return (np.random.default_rng(seed).standard_normal(shape)
             .astype(np.float32))

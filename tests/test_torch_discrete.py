@@ -29,6 +29,7 @@ update) tensor by tensor rtol 1e-3 of the tensor's norm, and at least
 1e-6 of JAX's (see ``test_discriminator_step_matches``).
 """
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -87,9 +88,16 @@ def _one_thread():
     """oneDNN's threaded conv1d data gradient is wrong at some strided
     shapes of the MSD (ROADMAP C), as in ``test_torch_train_v2.py``."""
     threads = torch.get_num_threads()
+    omp = os.environ.get("OMP_NUM_THREADS")
     torch.set_num_threads(1)
+    # and in the subprocesses this module starts
+    os.environ["OMP_NUM_THREADS"] = "1"
     yield
     torch.set_num_threads(threads)
+    if omp is None:
+        os.environ.pop("OMP_NUM_THREADS")
+    else:
+        os.environ["OMP_NUM_THREADS"] = omp
 
 
 def _np(tree):

@@ -24,6 +24,16 @@ from rave_tpu_torch.models import discriminators as td
 B, T = 2, 8192
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One PyTorch thread: beside the suite's other workers, more
+    oversubscribe the cores (ROADMAP A, Tier-1 room)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _unpack(f):
     return np.asarray(f.unpack() if isinstance(f, jd.PackedFeature) else f)
 

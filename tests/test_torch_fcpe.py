@@ -26,6 +26,32 @@ from rave_tpu_torch.models import pitch_fcpe as tf
 from rave_tpu_torch.ops.pitch import pitch_feature
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One PyTorch thread: beside the suite's other workers, more
+    oversubscribe the cores (ROADMAP A, Tier-1 room)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture
+def compiled_here():
+    """The JAX reference compiled in this process, not read from the
+    persistent compilation cache.  A file that imports
+    ``rave_tpu.train.trainer`` in-process (``tests/test_cli_e2e.py``,
+    ``test_parallel.py``, ``test_train.py``) points the cache of its
+    whole xdist worker at ``~/.jax_cache``, which no machine key
+    separates, and never points it back; a log-mel reference read from
+    there may come from another machine's compile.  Restored after."""
+    before = jax.config.jax_enable_compilation_cache
+    jax.config.update("jax_enable_compilation_cache", False)
+    jax.clear_caches()
+    yield
+    jax.config.update("jax_enable_compilation_cache", before)
+
+
 def torchfcpe_mirror(seed=0):
     """A module with torchfcpe CFNaiveMelPE's state-dict layout, random
     weights (non-trivial norms included)."""
@@ -144,7 +170,7 @@ def test_resample_to_matches_jax(sr):
         np.testing.assert_allclose(got, want, atol=1e-5)
 
 
-def test_log_mel_matches_jax():
+def test_log_mel_matches_jax(compiled_here):
     x16 = audio(2, 16000)
     got = tf.log_mel(torch.from_numpy(x16)).numpy()
     want = np.asarray(jf.log_mel(jnp.asarray(x16)))

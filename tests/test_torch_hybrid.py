@@ -38,6 +38,16 @@ HYBRID_TINY = ["capacity=4", "n_signal=16384", "batch_size=1",
 MEL = dict(n_fft=512, hop=16, n_mels=32, sample_rate=16000)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One PyTorch thread: beside the suite's other workers, more
+    oversubscribe the cores (ROADMAP A, Tier-1 room)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _signal(shape, seed=0, scale=0.3):
     return (scale * np.random.default_rng(seed).standard_normal(shape)
             ).astype(np.float32)

@@ -16,6 +16,7 @@ ENC, DEC and GRU gradient norms rtol 1e-3, as there; the reloaded
 float32 operations).
 """
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -51,9 +52,16 @@ def _one_thread():
     """oneDNN's threaded conv1d data gradient is wrong at some strided
     shapes (``tests/test_torch_train_v2.py``): one thread here."""
     threads = torch.get_num_threads()
+    omp = os.environ.get("OMP_NUM_THREADS")
     torch.set_num_threads(1)
+    # and in the subprocesses this module starts
+    os.environ["OMP_NUM_THREADS"] = "1"
     yield
     torch.set_num_threads(threads)
+    if omp is None:
+        os.environ.pop("OMP_NUM_THREADS")
+    else:
+        os.environ["OMP_NUM_THREADS"] = omp
 
 
 def _np(tree):

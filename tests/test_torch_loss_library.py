@@ -27,6 +27,16 @@ from rave_tpu_torch.train import schedules
 SR = 44100
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One PyTorch thread: beside the suite's other workers, more
+    oversubscribe the cores (ROADMAP A, Tier-1 room)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _signal(shape, seed=0, scale=0.3):
     rng = np.random.default_rng(seed)
     return (scale * rng.standard_normal(shape)).astype(np.float32)

@@ -22,6 +22,16 @@ TINY = ["capacity=4", "ratios=[2,2]", "dilations=[[1,3],[1,3]]"]
 WIDE = ["capacity=64", "ratios=[2,2]", "dilations=[[1,3],[1,3]]"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One PyTorch thread: beside the suite's other workers, more
+    oversubscribe the cores (ROADMAP A, Tier-1 room)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jax_model(stack, over, T, seed=0):
     cfg = jbuild(stack, over)
     m = JRAVE(cfg=cfg, train_mode=False)
@@ -117,15 +127,11 @@ def test_variational_head_sampling_matches():
                                   ["latent_head=wasserstein",
                                    "compute_dtype=bfloat16"]])
 def test_unsupported_options_raise(over):
-    """What the port lacks raises, naming its ROADMAP item: bf16 (A10).
-    The mel front end and the GRU layers (A7) build and run a tiny
-    forward: finite, shaped like the input (a mel encoder at a hop and
-    FFT size whose rate matches the decoder's, 16 x 4 samples per
-    latent frame)."""
-    if "compute_dtype=bfloat16" in over:
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            RAVE(build_config(["v2"], TINY + over), device="cpu")
-        return
+    """Options the port once lacked build and run a tiny forward: finite,
+    shaped like the input, float32 out.  The mel front end and the GRU
+    layers (A7); bf16 (A10), also with the Wasserstein head (a mel
+    encoder at a hop and FFT size whose rate matches the decoder's, 16 x
+    4 samples per latent frame)."""
     mel = (["mel_n_fft=256", "mel_hop=16", "mel_n_mels=32"]
            if "use_mel_encoder=true" in over else [])
     torch.manual_seed(0)
@@ -134,6 +140,7 @@ def test_unsupported_options_raise(over):
     with torch.no_grad():
         y = model(x, generator=torch.Generator().manual_seed(0))
     assert y.shape == x.shape and bool(torch.isfinite(y).all())
+    assert y.dtype == torch.float32
 
 
 def test_cuda_default_raises_without_cuda():

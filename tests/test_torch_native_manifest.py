@@ -43,6 +43,16 @@ MANIFEST = {"forward": "io_manifest.txt", "convert": "convert_manifest.txt",
             "convert_pg": "convert_pg_manifest.txt"}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One PyTorch thread: beside the suite's other workers, more
+    oversubscribe the cores (ROADMAP A, Tier-1 room)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def exported(tmp_path_factory):
     """Per config, the directories the port's and the JAX package's

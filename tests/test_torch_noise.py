@@ -32,6 +32,16 @@ from rave_tpu_torch.ops import losses
 from rave_tpu_torch.ops.conv import StreamSetup, stream_caches
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One PyTorch thread: beside the suite's other workers, more
+    oversubscribe the cores (ROADMAP A, Tier-1 room)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
 

@@ -24,6 +24,16 @@ SR = 44100
 THRESHOLD = 0.1
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One PyTorch thread: beside the suite's other workers, more
+    oversubscribe the cores (ROADMAP A, Tier-1 room)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def signals(seed, T=2 * SR):
     """Four test signals ``(4, T)``: a harmonic tone gliding in f0, two
     steady tones with noise, and noise with a voiced middle."""

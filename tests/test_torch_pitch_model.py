@@ -40,6 +40,16 @@ TABLE = (0.3 * np.random.default_rng(9).standard_normal((3, 256))
          ).astype(np.float32)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One PyTorch thread: beside the suite's other workers, more
+    oversubscribe the cores (ROADMAP A, Tier-1 room)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def voices(n, T, seed=0):
     """``n`` synthetic speakers ``(n, T)``: harmonic tones at distinct f0
     plus noise, the f0 gliding so that frames differ."""

@@ -20,6 +20,7 @@ speaker_stats``, ``cli train --config v2_fork --config pitch
 --voice_conversion`` of the run.
 """
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -52,9 +53,16 @@ def one_thread():
     """PyTorch on one CPU thread: beside the suite's other workers,
     several threads per process oversubscribe the cores."""
     threads = torch.get_num_threads()
+    omp = os.environ.get("OMP_NUM_THREADS")
     torch.set_num_threads(1)
+    # and in the subprocesses this module starts
+    os.environ["OMP_NUM_THREADS"] = "1"
     yield
     torch.set_num_threads(threads)
+    if omp is None:
+        os.environ.pop("OMP_NUM_THREADS")
+    else:
+        os.environ["OMP_NUM_THREADS"] = omp
 
 
 def tones(n, T, seed):

@@ -14,6 +14,16 @@ from rave_tpu_torch.ops.conv import StreamSetup as TSS
 ATOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One PyTorch thread: beside the suite's other workers, more
+    oversubscribe the cores (ROADMAP A, Tier-1 room)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def test_filter_arrays_equal():
     for att, M in [(100.0, 16), (100.0, 8)]:
         a, b = jp._pqmf_kernels(att, M), tp._pqmf_kernels(att, M)

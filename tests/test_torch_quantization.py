@@ -25,6 +25,16 @@ from rave_tpu_torch.models import quantization as tq
 D, K = 8, 32
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One PyTorch thread: beside the suite's other workers, more
+    oversubscribe the cores (ROADMAP A, Tier-1 room)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _rows_idx(n: int, num: int) -> np.ndarray:
     return np.random.RandomState(1000 * n + num).randint(0, n, num)
 

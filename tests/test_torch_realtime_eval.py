@@ -17,6 +17,7 @@ function; ``export`` (with and without ``--voice_conversion``) and
 exported ``forward.pt2`` equals the run's live stream bit for bit.
 """
 import json
+import os
 import time
 import types
 
@@ -58,10 +59,17 @@ def _one_thread():
     the suite's other workers, more threads oversubscribe the cores and a
     tiny step or a 20-point t-SNE takes minutes."""
     threads = torch.get_num_threads()
+    omp = os.environ.get("OMP_NUM_THREADS")
     torch.set_num_threads(1)
+    # and in the subprocesses this module starts
+    os.environ["OMP_NUM_THREADS"] = "1"
     with threadpool_limits(limits=1):
         yield
     torch.set_num_threads(threads)
+    if omp is None:
+        os.environ.pop("OMP_NUM_THREADS")
+    else:
+        os.environ["OMP_NUM_THREADS"] = omp
 
 
 def _wait(cond):

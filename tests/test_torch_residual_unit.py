@@ -23,6 +23,16 @@ VAL = dict(atol=2e-4, rtol=2e-3)
 GRAD = dict(atol=1e-3, rtol=1e-3)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One PyTorch thread: beside the suite's other workers, more
+    oversubscribe the cores (ROADMAP A, Tier-1 room)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(C=128, T=200, B=2, k=3, seed=0):
     r = np.random.default_rng(seed)
     f = lambda *s: r.standard_normal(s).astype(np.float32)  # noqa: E731
@@ -175,7 +185,9 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 
 def test_kernel_registry():
-    assert KERNELS[0] is ru.KERNEL and len(KERNELS) == 3
+    assert KERNELS[0] is ru.KERNEL and len(KERNELS) == 4
+    assert KERNELS[3] is ru.KERNEL_BF16
+    assert ru.KERNEL_BF16.library_path == ru.KERNEL.library_path
     assert all(k.source.is_file() for k in KERNELS)
     assert ru.KERNEL.library_path.parent.name == "_build"
 

@@ -29,6 +29,16 @@ TINY = ["capacity=4", "n_signal=8192", "ratios=[2,2]",
         "dilations=[[1,3],[1,3]]"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One PyTorch thread: beside the suite's other workers, more
+    oversubscribe the cores (ROADMAP A, Tier-1 room)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _randomise_stats(stats, seed):
     """Random BatchNorm statistics (positive variances)."""
     rng = np.random.default_rng(seed)

@@ -37,6 +37,16 @@ TINY = ["capacity=4", "n_signal=8192", "batch_size=2", "ratios=[2,2]",
         "dilations=[[1,3],[1,3]]"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One PyTorch thread: beside the suite's other workers, more
+    oversubscribe the cores (ROADMAP A, Tier-1 room)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("stack", [["v2"], ["v2_fork"], ["v2_fork", "causal"]])
 def test_receptive_field_frames_match(stack):
     assert (loop.receptive_field_frames(build_config(stack))

@@ -7,6 +7,7 @@ the step itself is held against the JAX package by
 ``tests/test_torch_speaker_train*.py``.
 """
 import json
+import os
 
 import numpy as np
 import pytest
@@ -25,9 +26,16 @@ def one_thread():
     oversubscribe the cores (a step then takes seconds instead of tens
     of milliseconds)."""
     threads = torch.get_num_threads()
+    omp = os.environ.get("OMP_NUM_THREADS")
     torch.set_num_threads(1)
+    # and in the subprocesses this module starts
+    os.environ["OMP_NUM_THREADS"] = "1"
     yield
     torch.set_num_threads(threads)
+    if omp is None:
+        os.environ.pop("OMP_NUM_THREADS")
+    else:
+        os.environ["OMP_NUM_THREADS"] = omp
 
 
 # a small multi-scale discriminator: the fork's full-width univnet and

@@ -35,6 +35,16 @@ SPECTRAL = (4096, 1024, 256)
 MEMBERS = ("periods", "scales", "spectral")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One PyTorch thread: beside the suite's other workers, more
+    oversubscribe the cores (ROADMAP A, Tier-1 room)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _unpack(f):
     return np.asarray(f.unpack() if isinstance(f, jd.PackedFeature) else f)
 

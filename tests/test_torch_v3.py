@@ -30,6 +30,16 @@ TINY = ["capacity=4", "latent_size=8", "num_quantizers=2",
         "dilations=[[1,3],[1,3]]"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One PyTorch thread: beside the suite's other workers, more
+    oversubscribe the cores (ROADMAP A, Tier-1 room)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
