@@ -87,7 +87,7 @@ the last line:
    step; every metric finite with the JAX package's names, the speaker
    terms non-zero on G steps only; DIS moves only on D steps, ENC, DEC
    and SPK only on G steps), two timed cycles, then a D, G pair at
-   4 x 65536 against the CPU (one thread): losses and ENC/DEC/SPK
+   2 x 65536 against the CPU (one thread): losses and ENC/DEC/SPK
    gradient norms rtol 1e-3.  The same for a ``speaker_norm=batch``
    copy, whose running statistics advance on every step and equal the
    CPU's after the D and the G step (rtol 1e-4).  A profile of one G
@@ -124,7 +124,7 @@ the last line:
    artifact present; the reloaded ``convert.pt2`` over 8 chunks against
    table row 1 equal to a live ``VoiceConverter`` of the same checkpoint,
    and ``forward.pt2`` to the live stream (<= 2e-4); ``cli eval`` writes
-   32 points from 8 speakers.  ``_smoke/`` is removed after it.
+   32 points from 8 speakers.
 11. pitch: the fork's f0-conditioned preset (``v2_fork`` + ``pitch``,
    ``fused_kernels=true``, random weights from seed 0) on four synthetic
    speakers whose f0 rises and falls by 10 %.  (a) ``RAVE.convert`` of
@@ -142,7 +142,7 @@ the last line:
    G steps at batch 8 x 131072 with the batch's speaker statistics: B1,
    B2, B3 launched 16, 3, 0 times per D step and 16, 3, 3 per G step,
    the metric names, finite values; D and G ms, peak memory; one G step
-   at 4 x 65536 card vs CPU (one thread): losses and ENC/DEC gradient
+   at 2 x 65536 card vs CPU (one thread): losses and ENC/DEC gradient
    norms rtol 1e-3.  (d) ``VoiceConverter`` with f0 over 32 chunks of
    4096 (median and p80 against the 92.9 ms a chunk lasts, no B1), card
    vs CPU over 8 chunks within 2e-4; ``serialize``, and the reloaded
@@ -165,7 +165,7 @@ the last line:
    live stream over 4 chunks (2e-4).  D, G, G, G at 8 x 131072 from
    ``phase_1_duration`` (B1 6 launches per D and per G step, metrics
    finite), two timed cycles, the codebooks finite; a D, G pair at
-   4 x 65536 from zero codebooks, card vs CPU (one thread, the same
+   2 x 65536 from zero codebooks, card vs CPU (one thread, the same
    random rows on both, ``learning_rate=1e-6``): losses, ENC/DEC
    gradient norms and the D step's DIS gradient norm rtol 1e-3, the
    codebook buffers after each step rtol 1e-4; one D step at the
@@ -206,8 +206,8 @@ the last line:
    package compiled for the CPU (a tiny v2, compiled in a subprocess
    meanwhile), a missing package, and a manifest whose ``out`` lines are
    rotated by one.  B1 runs in no package block and is launched by no
-   Python call of the phase.  ``_smoke/`` is removed after phase 10 and
-   after this one.
+   Python call of the phase.  It runs after phase 15, so that its
+   packages have compiled; ``_smoke/`` is removed after it.
 
 14. a6: ``v1`` / ``onnx`` / ``raspberry``, the noise generators, the
    Wasserstein and spherical heads, each at its full width (random
@@ -222,7 +222,7 @@ the last line:
    forward with zero draws (median relative error < 0.02, no B1),
    chunk median and p80, the seeded stream finite and the same after
    ``reset``; D, G, G, G at 8 x 131072 (B1 16 per step, the MMD
-   finite), timed cycles, a profile of one G step; a D, G pair at 4 x
+   finite), timed cycles, a profile of one G step; a D, G pair at 2 x
    65536 card vs CPU (one thread, ``learning_rate=1e-6``,
    ``log_epsilon=1e-3``): losses and ENC/DEC/DIS gradient norms rtol
    1e-3.  (b) ``v1`` (capacity 64, noise on),
@@ -255,7 +255,7 @@ the last line:
    ``process_file_scan`` against ``process_file`` (2e-4) and ms per
    chunk of each.  (c) D, G, G, G at 8 x 131072 from ``phase_1_duration``
    (B1 10 per step), timed cycles, peak memory, a profile of one G
-   step; a D, G pair at 4 x 65536 card vs CPU (one thread,
+   step; a D, G pair at 2 x 65536 card vs CPU (one thread,
    ``learning_rate=1e-6``, ``log_epsilon=1e-3``): losses and ENC, DEC,
    GRU and DIS gradient norms rtol 1e-3.  (d) The stream's
    ``serialize`` (before phase 6): the reloaded ``forward.pt2`` against
@@ -325,16 +325,65 @@ the last line:
    subprocess, served by the C++ host over 32 blocks: within 0.02
    relative L2 of the Python stream of the same chunks, p50/p80 block
    time.
+18. bf16_train: ``compute_dtype=bfloat16`` training (ROADMAP A10b) and
+   the bf16 instances of kernels B2 and B3.  (a) B2-bf16 and B3-bf16
+   over phase 2's grid (odd T, unaligned windows, k up to 16, co up to
+   64, T = 1): within 1 bf16 ulp of max |y| of float32 arithmetic on the
+   same bf16 operands rounded once (the Pallas kernels' contract), the
+   cuDNN bf16 twin's distance from it beside; dx and dw through the
+   ``autograd.Function`` against autograd of the twin (2 ulps); at the
+   three main-path shapes call and device times beside cuDNN's, and the
+   byte bound.  (b) B1-bf16's backward at the three B = 8 step shapes:
+   the gradients of all five operands through the kernel's
+   ``autograd.Function`` against autograd of the plain bf16 composition
+   on the card, within 2 ulps of each gradient's max |g| (cuDNN's bf16
+   weight gradients may sum in another order per call).  The backward
+   is autograd of that composition, so this holds its wiring on the
+   card; ``tests/test_torch_residual_unit.py`` holds its arithmetic
+   against the JAX package's bf16 VJP.  (c) The
+   full-width bf16 ``v2_fork`` (``fused_kernels=true``, frozen speaker
+   encoder) at 8 x 131072 from ``phase_1_duration``: D, G, G, G with
+   B1-bf16 16, B2-bf16 3 and B3-bf16 3 (0 on D) launches per step and
+   no float32 instance, finite metrics, DIS moving on D, ENC and DEC on
+   G, the speaker encoder never, the parameters float32; a timed bf16
+   cycle and a float32 one of the same weights in turns (D and G ms,
+   peak memory); one bf16 G step at 2 x 65536 card vs CPU, losses and
+   ENC/DEC gradient norms rtol 1.3e-2, which the float32 step of the
+   same weights on the card must miss.  (d) The full-width bf16 ``v2``:
+   one D and one G step, B1-bf16 16 launches each, B2/B3 none.  (e) Run
+   beside 9(b)'s resume and 10(a), on phase 9(b)'s db: ``python -m
+   rave_tpu_torch.cli train`` on the bf16 ``v2_fork`` for 4 steps
+   (``phase_1_duration=2``, a validation at step 3); its checkpoint
+   holds float32 tensors only and ``load_run`` restores it into float32
+   parameters.  (f) One bf16 D and one bf16 G step of every other preset
+   the JAX package trains in bf16 (``v1``, ``onnx``, ``raspberry``,
+   ``v2`` + ``noise`` + ``wasserstein``, ``v2`` + ``spherical`` +
+   ``causal``, ``v3``, ``discrete``, ``discrete_v3``, ``v2_fork`` +
+   ``pitch``, the from-scratch ``v2_fork``) at its own width, 65536
+   samples: finite metrics, each group moving on its own step only, the
+   parameters float32, every discriminator conv reading bf16; the
+   launches recorded.
 
 ``python3 chip_smoke.py --parallel-cards N`` runs (a) and (c) alone
 with N NCCL ranks, one per card of one host, against one
 process on card 0, and ends with the same last two lines.
 
 Phase 13's four packages compile in ``nice 19`` subprocesses started
-after phase 5 (the v2 ``forward``, then phase 17's bf16 one), after
-phase 10 (the trained run's ``convert``, its export copied under
-``rave_tpu_torch/_build/``) and after phase 11 (``convert_pg`` and (d)'s
-CPU package), beside phase 14's.
+after phase 5 (the v2 ``forward``, then phase 17's bf16 one; the two
+streams are serialized there too, from weights saved under
+``rave_tpu_torch/_build/``, as are phase 14's ``v3`` and phase 15's
+hybrid stream in the third), after phase 10(b) (the trained run's
+``convert``, its export copied under ``rave_tpu_torch/_build/``) and
+after phase 11 (``convert_pg`` and (d)'s CPU package).
+
+Commands run beside the phases, so that the whole run stays well inside
+its time limit: the C++ host's ``g++`` beside ``nvcc`` (phase 1); 9(b)'s
+preprocess, perturb and units at nice 10 from phase 6 on, its 12 steps
+beside 9(a), its resume and 18(e)'s bf16 command beside 10(a); 10(b)'s
+export and eval beside phase 11; 11(b)'s commands at nice 10 beside
+11(b)-(e).  Each phase line lists in ``beside`` the commands still
+running when it was printed: its times share the card and the CPU with
+them.
 
 Before the last line it prints the ``nvidia-smi`` line and one JSON
 object ``{"kernels": [...]}``; the last line is
@@ -361,6 +410,11 @@ TRAIN_BATCH = 8
 # checks run as before)
 TIMED_CYCLES = 1
 FILE_RUNS = 1
+# rows of each D, G pair (or G step) held card vs CPU at 65536 samples:
+# 4 before phase 18 existed, cut so that the whole run stays inside its
+# time limit (each of these paths also runs at full width on the card in
+# its phase)
+PAIR_BATCH = 2
 PEAK_F32_FLOPS = 67e12   # H100 SXM, float32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12  # H100 SXM, dense TF32 on the tensor cores
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
@@ -389,22 +443,122 @@ CPU_TOL = 2e-4           # max |card - cpu| on tanh-bounded audio
 # segments (max(32768, len // 4) = 65536) are a multiple of the 16 bands
 VC_SPEAKERS, VC_SAMPLES, VC_CHUNK = 4, 262144, 4096
 EMB_TOL = 1e-4           # max |card - cpu| / max |e| of speaker embeddings
+# the bf16 instances of B2/B3, launched only by a bf16 train step
+NO_CI1_BF16 = {"ci1_conv_forward_bf16": 0, "ci1_conv_dx_bf16": 0}
+# shapes the v2_fork train step gives B2/B3: the three MelGAN heads see
+# real and fake together (B = 16) after the 1245-band-frame crop per
+# side: 131072 - 2 * 1245 * 16 = 91232 samples, halved twice
+CI1_MAIN = [(16, 91232), (16, 45616), (16, 22808)]
 
 
 T_START = time.perf_counter()
+LAST_LINE = [T_START]    # when the last phase line was printed
 
 
 def emit(obj) -> None:
     """One JSON line; a phase's lines carry the seconds since the script
-    started (``t_s``)."""
+    started (``t_s``) and the commands (:class:`Job`) that ran at some
+    time since the previous phase line (``beside``): the times the line
+    reports shared the card and the CPU with them."""
     if "phase" in obj:
-        obj = {**obj, "t_s": time.perf_counter() - T_START}
+        now = time.perf_counter()
+        beside = [j.what for j in JOBS
+                  if j.t_end is None or j.t_end > LAST_LINE[0]]
+        LAST_LINE[0] = now
+        obj = {**obj, "t_s": now - T_START,
+               **({"beside": beside} if beside else {})}
     print(json.dumps(obj), flush=True)
 
 
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+class Job:
+    """A subprocess started now and read later, while this process goes
+    on with other work: its output goes to temporary files (a pipe left
+    unread would stall it), ``main`` kills it and the processes it
+    started (its session) if it is still running at the end, and
+    ``result`` waits for it, fails the run on a non-zero
+    exit and returns its stdout and the seconds from its start to its
+    exit.  ``nice`` lowers its priority (CPU work beside this process's
+    steps)."""
+
+    def __init__(self, args, what: str, timeout: float = 600, nice=0):
+        import tempfile
+        import threading
+        self.what, self.timeout = what, timeout
+        self.out = tempfile.TemporaryFile("w+")
+        self.err = tempfile.TemporaryFile("w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [*(["nice", "-n", str(nice)] if nice else []), *args],
+            stdout=self.out, stderr=self.err, text=True,
+            start_new_session=True)
+        JOBS.append(self)
+        self.seconds = self.t_end = None
+        self.watch = threading.Thread(target=self._wait, daemon=True)
+        self.watch.start()
+
+    def _wait(self):
+        try:
+            self.proc.wait(timeout=self.timeout)
+        except subprocess.TimeoutExpired:
+            self.stop()
+            self.proc.wait()
+        self.t_end = time.perf_counter()
+        self.seconds = self.t_end - self.t0
+
+    def stop(self):
+        import os
+        import signal
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+
+    def result(self):
+        self.watch.join()
+        self.out.seek(0)
+        self.err.seek(0)
+        out, err = self.out.read(), self.err.read()
+        check(self.proc.returncode == 0, f"{self.what} exited "
+              f"{self.proc.returncode}: {out[-1000:]} {err[-2000:]}")
+        return out, self.seconds
+
+
+class Later:
+    """``fn(*args)`` in a thread from now on; ``result`` joins it and
+    returns its value or raises its exception; ``seconds`` is the time
+    ``fn`` took."""
+
+    def __init__(self, fn, *args):
+        import threading
+        self.value, self.error, self.seconds = None, None, None
+        self.thread = threading.Thread(target=self._run, args=(fn, args),
+                                       daemon=True)
+        self.thread.start()
+
+    def _run(self, fn, args):
+        t0 = time.perf_counter()
+        try:
+            self.value = fn(*args)
+        except BaseException as e:  # noqa: BLE001 - re-raised in result
+            self.error = e
+        self.seconds = time.perf_counter() - t0
+
+    def result(self):
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        return self.value
+
+
+def cli_job(*args, what=None, timeout=600, launcher=(), nice=0) -> Job:
+    """``python -m rave_tpu_torch.cli *args`` as a :class:`Job`."""
+    return Job([sys.executable, *launcher, "-m", "rave_tpu_torch.cli",
+                *args], what or f"cli {args[0]}", timeout, nice)
 
 
 def cuda_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
@@ -695,7 +849,7 @@ def device_profile(torch, fn, names=()) -> dict:
                             for n in names}}
 
 
-def train_batch(torch, np, B, T, frames, seed=SEED):
+def train_batch(torch, np, B, T, frames, seed=SEED, device="cuda"):
     """Audio (B, T, 1): sines at seeded pitches plus noise; unit ids
     (B, frames) in [0, 100)."""
     rng = np.random.default_rng(seed)
@@ -705,8 +859,8 @@ def train_batch(torch, np, B, T, frames, seed=SEED):
                       for f in rng.uniform(80, 800, B)])
     units = rng.integers(0, 100, (B, frames))
     return {"x": torch.tensor(audio[:, :, None], dtype=torch.float32,
-                              device="cuda"),
-            "units": torch.tensor(units, device="cuda")}
+                              device=device),
+            "units": torch.tensor(units, device=device)}
 
 
 def phase_train(torch, np, KERNELS):
@@ -730,9 +884,11 @@ def phase_train(torch, np, KERNELS):
               "enc": state.enc_params, "dec": state.dec_params,
               "speaker": list(state.model.speaker_encoder.parameters())}
     expect_launches = {"D": {"residual_unit": 0, "ci1_conv_forward": 3,
-                             "ci1_conv_dx": 0, "residual_unit_bf16": 0},
+                             "ci1_conv_dx": 0, "residual_unit_bf16": 0,
+                             **NO_CI1_BF16},
                        "G": {"residual_unit": 0, "ci1_conv_forward": 3,
-                             "ci1_conv_dx": 3, "residual_unit_bf16": 0}}
+                             "ci1_conv_dx": 3, "residual_unit_bf16": 0,
+                             **NO_CI1_BF16}}
 
     # warm-up cycle D, G, G, G: launches, metrics, which groups move
     cycle = []
@@ -858,7 +1014,7 @@ def phase_train_v2(torch, np, KERNELS):
     groups = {"dis": list(state.disc.parameters()),
               "enc": state.enc_params, "dec": state.dec_params}
     expect = {"residual_unit": 16, "ci1_conv_forward": 0, "ci1_conv_dx": 0,
-              "residual_unit_bf16": 0}
+              "residual_unit_bf16": 0, **NO_CI1_BF16}
 
     # warm-up: G, G in phase 1, then D, G, G, G
     warmup = []
@@ -1065,7 +1221,8 @@ def phase_voice_conversion(torch, np, KERNELS):
         torch.cuda.synchronize()
         launches = counts()
         check(launches == {"residual_unit": 16, "ci1_conv_forward": 0,
-                           "ci1_conv_dx": 0, "residual_unit_bf16": 0},
+                           "ci1_conv_dx": 0, "residual_unit_bf16": 0,
+                           **NO_CI1_BF16},
               f"convert launches {launches}")
         check(tuple(y.shape) == tuple(src.shape), f"convert shape {y.shape}")
         check(bool(torch.isfinite(y).all()), "convert output not finite")
@@ -1287,7 +1444,7 @@ def phase_train_vc_step(torch, np, KERNELS, norm, device="cuda"):
         launches = counts()
         want = {"residual_unit": 16, "ci1_conv_forward": 3,
                 "ci1_conv_dx": 3 if kind == "G" else 0,
-                "residual_unit_bf16": 0}
+                "residual_unit_bf16": 0, **NO_CI1_BF16}
         check(launches == want, f"train_vc {norm} {kind} launches {launches}")
         values = {k: float(v) for k, v in metrics.items()}
         check(sorted(values) == TRAIN_VC_METRICS,
@@ -1323,10 +1480,10 @@ def phase_train_vc_step(torch, np, KERNELS, norm, device="cuda"):
 
     # a short D, G pair on the card and on the CPU (one thread: PyTorch's
     # threaded oneDNN conv1d data gradient is wrong at some strided
-    # shapes); four items, four speakers, so that the cohort norm sees a
-    # cohort
+    # shapes); PAIR_BATCH items, as many speakers, so that the cohort
+    # norm sees a cohort
     short = build_config(["v2_fork"], over + ["n_signal=65536",
-                                              "batch_size=4"])
+                                              f"batch_size={PAIR_BATCH}"])
     torch.manual_seed(SEED + 1)
     card = loop.TrainState(short, device=device, step=short.phase_1_duration)
     cpu = loop.TrainState(short, device="cpu", step=short.phase_1_duration)
@@ -1334,7 +1491,8 @@ def phase_train_vc_step(torch, np, KERNELS, norm, device="cuda"):
                                card.model.state_dict().items()})
     cpu.disc.load_state_dict({k: v.cpu() for k, v in
                               card.disc.state_dict().items()})
-    sb = vc_batch(torch, np, 4, short.n_signal, 74, device, seed=SEED + 2)
+    sb = vc_batch(torch, np, PAIR_BATCH, short.n_signal, 74, device,
+                  seed=SEED + 2)
     sb_cpu = {k: v.cpu() for k, v in sb.items()}
     short_fn = loop.make_train_step(short)
     threads = torch.get_num_threads()
@@ -1425,24 +1583,15 @@ def _sections(text: str) -> dict:
     return found
 
 
-def phase_train_vc_cli(torch, np, device="cuda"):
-    """(b) of phase 9: ``python -m rave_tpu_torch.cli`` preprocess,
-    perturb, units and train on a corpus of 8 synthetic speakers, then
-    ``--resume``; the checkpoint restores bit for bit.  The 12 steps run
-    as a one-card user starts them, ``python -m rave_tpu_torch.cli
-    train``; the resume runs through the data-parallel entry point on
-    NCCL (phase 16(b)): ``python -m torch.distributed.run --standalone
-    --nproc_per_node=1 -m rave_tpu_torch.cli train --multihost``, one
-    rank on the card, whose step, logging, validation and checkpoints are
-    a single process's.  Returns the run directory, the db, the first
-    clip of each speaker (phase 10 exports the run; ``main`` removes
-    ``_smoke/`` after it) and the torchrun command's numbers."""
+def train_vc_db(np) -> Later:
+    """(b) of phase 9, its data, started before phase 6: 8 synthetic
+    speakers x 4 clips of 131072 written under ``_smoke/``, then ``python
+    -m rave_tpu_torch.cli`` preprocess, perturb (2 variants) and units in
+    turn, at nice 10 in a thread while the train phases run.  Its result:
+    the db and each command's seconds."""
     from pathlib import Path
-    from rave_tpu_torch.config import build_config
     from rave_tpu_torch.data.audio_io import save_wav
-    from rave_tpu_torch.train import checkpoint, loop
 
-    t_phase = time.perf_counter()
     root = Path(SMOKE_DIR)
     shutil.rmtree(root, ignore_errors=True)
     clips = voices(np, 8, 4 * SAMPLES, seed=SEED + 3)
@@ -1452,30 +1601,32 @@ def phase_train_vc_cli(torch, np, device="cuda"):
         for k in range(4):
             save_wav(str(d / f"{k}.wav"), clips[s, k * SAMPLES:
                                                 (k + 1) * SAMPLES], 44100)
-    db, runs = str(root / "db"), str(root / "runs")
+    db = str(root / "db")
 
-    def cli(*args, timeout=600, launcher=()):
-        t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, *launcher, "-m",
-                            "rave_tpu_torch.cli", *args],
-                           capture_output=True, text=True, timeout=timeout)
-        check(r.returncode == 0, f"cli {args[0]} exited {r.returncode}: "
-              f"{r.stderr[-2000:]}")
-        return r.stdout, time.perf_counter() - t0
+    def commands():
+        seconds = {}
+        _, seconds["preprocess"] = cli_job(
+            "preprocess", "--input_path", str(root / "audio"),
+            "--output_path", db, "--num_workers", "4", nice=10).result()
+        _, seconds["perturb"] = cli_job(
+            "perturb", "--db_path", db, "--variants", "2", "--num_workers",
+            "8", nice=10).result()
+        _, seconds["units"] = cli_job("units", "--db_path", db,
+                                      nice=10).result()
+        return db, seconds
 
-    # one rank under torchrun: NCCL on the card, gloo on the CPU
-    torchrun = ["-m", "torch.distributed.run", "--standalone",
-                "--nproc_per_node=1"]
-    rank_line = ("rank 0 of 1 on cuda:0 (nccl)" if device == "cuda"
-                 else "rank 0 of 1 on cpu (gloo)")
+    return Later(commands)
 
-    seconds = {}
-    _, seconds["preprocess"] = cli("preprocess", "--input_path",
-                                   str(root / "audio"), "--output_path", db,
-                                   "--num_workers", "4")
-    _, seconds["perturb"] = cli("perturb", "--db_path", db, "--variants", "2",
-                                "--num_workers", "8")
-    _, seconds["units"] = cli("units", "--db_path", db)
+
+def train_vc_cli_job(data, device="cuda") -> dict:
+    """(b) of phase 9, its 12 steps, started once the db of
+    :func:`train_vc_db` (``data``) is made, beside (a): ``python -m
+    rave_tpu_torch.cli train`` as a one-card user starts it, 4 steps in
+    phase 1, validation and checkpoints at step 8, two loader workers,
+    ``--profile``."""
+    from pathlib import Path
+    db, seconds = data.result()
+    runs = str(Path(SMOKE_DIR) / "runs")
     over = ["fused_kernels=true", "train_speaker_encoder=true",
             "speaker_classes=8", "phase_1_duration=4"]
     train = ["train", "--config", "v2_fork",
@@ -1483,7 +1634,39 @@ def phase_train_vc_cli(torch, np, device="cuda"):
              "--db_path", db, "--out_path", runs, "--val_every", "8",
              "--ckpt_every", "8", "--num_workers", "2", "--profile",
              "--device", device]
-    out, seconds["train"] = cli(*train, "--max_steps", "12")
+    return {"db": db, "runs": runs, "seconds": seconds, "over": over,
+            "train": train, "t0": time.perf_counter(),
+            "job": cli_job(*train, "--max_steps", "12")}
+
+
+def phase_train_vc_cli(torch, np, started, device="cuda"):
+    """(b) of phase 9: the command of :func:`train_vc_cli_job`
+    (``started``) finished its 12 steps, then ``--resume``; the
+    checkpoint restores bit for bit.  The resume runs through the
+    data-parallel entry point on NCCL (phase 16(b)): ``python -m
+    torch.distributed.run --standalone --nproc_per_node=1 -m
+    rave_tpu_torch.cli train --multihost``, one rank on the card, whose
+    step, logging, validation and checkpoints are a single process's.
+    The resume runs in the background: returns the run directory, the
+    db, the first clip of each speaker (phase 10 exports the run;
+    ``main`` removes ``_smoke/`` after phase 13) and a function that
+    waits for the resume, checks it and returns the torchrun command's
+    numbers."""
+    from pathlib import Path
+    from rave_tpu_torch.config import build_config
+    from rave_tpu_torch.train import checkpoint, loop
+
+    t_phase = started["t0"]
+    root = Path(SMOKE_DIR)
+    db, runs, seconds = started["db"], started["runs"], started["seconds"]
+    over, train = started["over"], started["train"]
+
+    # one rank under torchrun: NCCL on the card, gloo on the CPU
+    torchrun = ["-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node=1"]
+    rank_line = ("rank 0 of 1 on cuda:0 (nccl)" if device == "cuda"
+                 else "rank 0 of 1 on cpu (gloo)")
+    out, seconds["train"] = started["job"].result()
     check("finished at step 12" in out and "rank 0 of" not in out,
           f"train did not finish: {out[-2000:]}")
     run = next(Path(runs).iterdir())
@@ -1503,6 +1686,8 @@ def phase_train_vc_cli(torch, np, device="cuda"):
     sec = _sections(out)
     check({"load", "put", "step"} <= set(sec), f"profile sections {sec}")
     wall = sum(sec[k][0] for k in ("load", "put", "step"))
+    resume = cli_job(*train, "--multihost", "--max_steps", "16",
+                     "--resume", launcher=torchrun)
 
     # the last checkpoint, restored into a fresh state on the card
     saved = torch.load(ck / "ckpt_12.pt", weights_only=True)
@@ -1523,26 +1708,29 @@ def phase_train_vc_cli(torch, np, device="cuda"):
     check(same(got, saved), "restored state differs from the checkpoint")
     del restored, got, saved
 
-    out2, seconds["resume"] = cli(*train, "--multihost", "--max_steps",
-                                  "16", "--resume", launcher=torchrun)
-    check("resumed from step 12" in out2 and "finished at step 16" in out2
-          and rank_line in out2, f"resume: {out2[-2000:]}")
-    ckpts = sorted(p.name for p in ck.glob("ckpt_*.pt"))
-    check(ckpts == ["ckpt_12.pt", "ckpt_16.pt", "ckpt_9.pt"],
-          f"checkpoints after the resume {ckpts}")
-    emit({"phase": "train_vc", "step": "cli", "overrides": over,
-          "records": json.loads((Path(db) / "meta.json").read_text())["count"],
-          "seconds": seconds, "sections_ms": sec,
-          "steps_per_s": sec["step"][1] / (wall / 1e3),
-          "loader_share": (sec["load"][0] + sec["put"][0]) / wall,
-          "validation": val[0], "checkpoints": names,
-          "restored_bit_exact": True,
-          "resume_launcher": " ".join(torchrun) + " --multihost",
-          "phase_seconds": time.perf_counter() - t_phase})
+    def finish():
+        out2, seconds["resume"] = resume.result()
+        check("resumed from step 12" in out2 and "finished at step 16" in out2
+              and rank_line in out2, f"resume: {out2[-2000:]}")
+        ckpts = sorted(p.name for p in ck.glob("ckpt_*.pt"))
+        check(ckpts == ["ckpt_12.pt", "ckpt_16.pt", "ckpt_9.pt"],
+              f"checkpoints after the resume {ckpts}")
+        emit({"phase": "train_vc", "step": "cli", "overrides": over,
+              "records": json.loads((Path(db) / "meta.json").read_text())[
+                  "count"],
+              "seconds": seconds, "sections_ms": sec,
+              "steps_per_s": sec["step"][1] / (wall / 1e3),
+              "loader_share": (sec["load"][0] + sec["put"][0]) / wall,
+              "validation": val[0], "checkpoints": names,
+              "restored_bit_exact": True,
+              "resume_launcher": " ".join(torchrun) + " --multihost",
+              "phase_seconds": time.perf_counter() - t_phase})
+        return {"launcher": " ".join(torchrun) + " --multihost",
+                "rank": rank_line, "resume_s": seconds["resume"],
+                "checkpoints": ckpts}
+
     return run, db, [str(root / "audio" / f"spk{s}" / "0.wav")
-                     for s in range(8)], {
-        "launcher": " ".join(torchrun) + " --multihost", "rank": rank_line,
-        "resume_s": seconds["resume"], "checkpoints": ckpts}
+                     for s in range(8)], finish
 
 
 # export: the streaming and conversion steps as torch.export programs,
@@ -1798,30 +1986,31 @@ def phase_export_stream(torch, np, KERNELS, state, audio, model, x_batch,
     emit(out)
 
 
-def phase_export_run(torch, np, run, db, wavs, card, device="cuda"):
-    """(b) of phase 10: ``python -m rave_tpu_torch.cli export`` and
-    ``eval`` of the run phase 9(b) trained; the reloaded programs against
-    the live converter and stream built from the same checkpoint
-    (``card`` as in :func:`phase_export_stream`)."""
+def export_run_jobs(run, db, wavs, device="cuda") -> dict:
+    """(b) of phase 10, its commands, started once phase 9(b)'s resume
+    has ended, beside phase 11: ``python -m rave_tpu_torch.cli export
+    --voice_conversion`` and ``eval`` of the run, at once (eval writes
+    only its embeddings)."""
+    return {"t0": time.perf_counter(), "export": cli_job(
+        "export", "--run", str(run), "--chunk_size", str(VC_CHUNK),
+        "--voice_conversion", "--speaker_wavs", *wavs[:VC_SPEAKERS],
+        "--device", device, timeout=EXPORT_TIMEOUT),
+        "eval": cli_job("eval", "--run", str(run), "--db_path", str(db),
+                        "--device", device, timeout=EXPORT_TIMEOUT)}
+
+
+def phase_export_run(torch, np, run, wavs, jobs, card, device="cuda"):
+    """(b) of phase 10: the commands of :func:`export_run_jobs` (``jobs``)
+    of the run phase 9(b) trained; the reloaded programs against the
+    live converter and stream built from the same checkpoint (``card``
+    as in :func:`phase_export_stream`)."""
     from rave_tpu_torch.data.audio_io import load_wav
     from rave_tpu_torch.export.streaming import (StreamingRAVE, load_run,
                                                  run_params)
     from rave_tpu_torch.export.voice_conversion import VoiceConverter
 
-    t_phase = time.perf_counter()
-
-    def cli(*args):
-        t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", "rave_tpu_torch.cli",
-                            *args, "--device", device], capture_output=True,
-                           text=True, timeout=EXPORT_TIMEOUT)
-        check(r.returncode == 0, f"cli {args[0]} exited {r.returncode}: "
-              f"{r.stderr[-2000:]}")
-        return time.perf_counter() - t0
-
-    seconds = {"export": cli("export", "--run", str(run), "--chunk_size",
-                             str(VC_CHUNK), "--voice_conversion",
-                             "--speaker_wavs", *wavs[:VC_SPEAKERS])}
+    t_phase = jobs["t0"]
+    seconds = {"export": jobs["export"].result()[1]}
     out = run / "export"
     names = sorted(p.name for p in out.iterdir())
     want = sorted(["cache_init.bin", "cache_init.npz", "convert.pt2",
@@ -1872,7 +2061,7 @@ def phase_export_run(torch, np, run, db, wavs, card, device="cuda"):
     check(fwd_err <= EXPORT_TOL, f"forward.pt2 vs live fork stream: {fwd_err}")
     del live, fwd
 
-    seconds["eval"] = cli("eval", "--run", str(run), "--db_path", str(db))
+    seconds["eval"] = jobs["eval"].result()[1]
     res = json.loads((run / "speaker_embeddings.json").read_text())
     pts = np.asarray(res["points"])
     check(pts.shape == (32, 2) and np.isfinite(pts).all()
@@ -1986,16 +2175,12 @@ CLI_TF32_OFF = ("import sys, torch; "
                 "from rave_tpu_torch.cli import main; main(sys.argv[1:])")
 
 
-def run_cli(*args, timeout=600):
+def cli_tf32_off_job(*args, timeout=600, nice=10) -> Job:
     """The port's CLI (``rave_tpu_torch.cli.main``) in a subprocess with
-    TF32 off, so that a card run compares with a CPU run in float32;
-    fails the run on a non-zero exit.  Returns its stdout and seconds."""
-    t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-c", CLI_TF32_OFF, *args],
-                       capture_output=True, text=True, timeout=timeout)
-    check(r.returncode == 0, f"cli {args[0]} exited {r.returncode}: "
-          f"{r.stdout[-1000:]} {r.stderr[-2000:]}")
-    return r.stdout, time.perf_counter() - t0
+    TF32 off, so that a card run compares with a CPU run in float32, as
+    a :class:`Job` at nice ``nice``."""
+    return Job([sys.executable, "-c", CLI_TF32_OFF, *args],
+               f"cli {args[0]}", timeout, nice)
 
 
 def phase_pitch(torch, np, KERNELS, device="cuda"):
@@ -2005,7 +2190,6 @@ def phase_pitch(torch, np, KERNELS, device="cuda"):
     which the caller removes)."""
     from pathlib import Path
     from rave_tpu_torch.config import build_config
-    from rave_tpu_torch.data.audio_io import save_wav
     from rave_tpu_torch.export.voice_conversion import VoiceConverter
     from rave_tpu_torch.models import pitch_fcpe as F
     from rave_tpu_torch.models.rave import RAVE
@@ -2020,9 +2204,9 @@ def phase_pitch(torch, np, KERNELS, device="cuda"):
             k.launches = 0
 
     t_phase = time.perf_counter()
-    root = Path(SMOKE_DIR)
+    root = Path(SMOKE_DIR) / "pitch"
     shutil.rmtree(root, ignore_errors=True)
-    root.mkdir()
+    root.mkdir(parents=True)
     cfg = build_config(PITCH_STACK, ["fused_kernels=true"])
     sr = cfg.sampling_rate
     torch.manual_seed(SEED)
@@ -2047,7 +2231,8 @@ def phase_pitch(torch, np, KERNELS, device="cuda"):
         torch.cuda.synchronize()
         launches = counts()
         check(launches == {"residual_unit": 16, "ci1_conv_forward": 0,
-                           "ci1_conv_dx": 0, "residual_unit_bf16": 0},
+                           "ci1_conv_dx": 0, "residual_unit_bf16": 0,
+                           **NO_CI1_BF16},
               f"pitch convert launches {launches}")
         check(tuple(y.shape) == tuple(src.shape), f"pitch convert {y.shape}")
         check(bool(torch.isfinite(y).all()), "pitch convert not finite")
@@ -2096,6 +2281,7 @@ def phase_pitch(torch, np, KERNELS, device="cuda"):
     # (b) FCPE from a random-weight checkpoint in torchfcpe's layout
     ckpt = str(root / "fcpe_random.pt")
     fcpe_checkpoint(torch, np, ckpt)
+    fcpe_cli = pitch_commands(np, root, ckpt, sr, device)
     fc, fc_cpu = F.get_fcpe(ckpt, device), F.get_fcpe(ckpt, "cpu")
     with torch.inference_mode():
         ff_card = F.fcpe_f0(fc, src[..., 0], sr, out_frames=frames)
@@ -2120,44 +2306,10 @@ def phase_pitch(torch, np, KERNELS, device="cuda"):
             [cuda_ms(torch, lambda: fmodel.convert(src, tgt), iters=1,
                      warmup=0) for _ in range(5)])
     del fmodel, yf, y
-    corpus = glides(np, PITCH_SPEAKERS, 2 * PITCH_CLIP, seed=SEED + 5)
-    for s in range(PITCH_SPEAKERS):
-        d = root / "audio" / f"spk{s}"
-        d.mkdir(parents=True)
-        for k in range(2):
-            save_wav(str(d / f"{k}.wav"),
-                     corpus[s, k * PITCH_CLIP:(k + 1) * PITCH_CLIP], sr)
-    db = str(root / "db")
-    seconds = {}
-    _, seconds["preprocess"] = run_cli(
-        "preprocess", "--input_path", str(root / "audio"), "--output_path",
-        db, "--num_workers", "4")
-    stats = {}
-    for dev in (device, "cpu"):
-        out = root / f"stats_{dev}.json"
-        _, seconds[f"speaker_stats_{dev}"] = run_cli(
-            "speaker_stats", "--db_path", db, "--pitch_ckpt", ckpt,
-            "--out", str(out), "--device", dev)
-        stats[dev] = json.loads(out.read_text())
-    check(sorted(stats[device]) == [f"spk{s}" for s in range(PITCH_SPEAKERS)],
-          f"speaker_stats speakers {sorted(stats[device])}")
-    stats_rel = max(abs(stats[device][n][k] - stats["cpu"][n][k])
-                    / max(abs(stats["cpu"][n][k]), 1e-12)
-                    for n in stats["cpu"] for k in ("mean", "std"))
-    check(stats_rel <= STATS_RTOL, f"speaker_stats card vs cpu: {stats_rel}")
-    out, seconds["validate_assets"] = run_cli(
-        "validate_assets", "--fcpe_ckpt", ckpt, "--out",
-        str(root / "assets.md"), "--device", device)
-    check("fcpe (pitch teacher): pass" in out,
-          f"validate_assets: {out[-1500:]}")
     emit({"phase": "pitch", "step": "fcpe", "f0_rel_err_vs_cpu": fcpe_rel,
           "voiced_share": float((ff_cpu.numpy() > 0).mean()),
           "fcpe_f0_device_ms": fcpe_ms, "convert_batch_ms": fcpe_convert_ms,
-          "fcpe_vs_yin_max_abs": fcpe_vs_yin, "speaker_stats": stats[device],
-          "speaker_stats_rel_err_vs_cpu": stats_rel,
-          "validate_assets": [ln for ln in out.splitlines()
-                              if ln.startswith("fcpe")],
-          "seconds": seconds})
+          "fcpe_vs_yin_max_abs": fcpe_vs_yin})
 
     # (c) training through the speaker-statistics route
     torch.manual_seed(SEED)
@@ -2187,7 +2339,7 @@ def phase_pitch(torch, np, KERNELS, device="cuda"):
         got = counts()
         want = {"residual_unit": 16, "ci1_conv_forward": 3,
                 "ci1_conv_dx": 3 if kind == "G" else 0,
-                "residual_unit_bf16": 0}
+                "residual_unit_bf16": 0, **NO_CI1_BF16}
         check(got == want, f"pitch train {kind} launches {got}")
         values = {k: float(v) for k, v in metrics.items()}
         check(sorted(values) == TRAIN_METRICS,
@@ -2205,9 +2357,11 @@ def phase_pitch(torch, np, KERNELS, device="cuda"):
                                      iters=1, warmup=0))
     train_peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     del tstate, batch
-    # one G step at 4 x 65536 on the card and on the CPU (one thread)
+    # one G step at PAIR_BATCH x 65536 on the card and on the CPU (one
+    # thread)
     short = build_config(PITCH_STACK, ["fused_kernels=true",
-                                       "n_signal=65536", "batch_size=4"])
+                                       "n_signal=65536",
+                                       f"batch_size={PAIR_BATCH}"])
     g_step = short.phase_1_duration + 1
     torch.manual_seed(SEED + 1)
     card = loop.TrainState(short, device=device, step=g_step)
@@ -2216,11 +2370,11 @@ def phase_pitch(torch, np, KERNELS, device="cuda"):
                                  card.model.state_dict().items()})
     cpu_t.disc.load_state_dict({k: v.cpu() for k, v in
                                 card.disc.state_dict().items()})
-    xs4 = glides(np, 4, short.n_signal, seed=SEED + 8)
+    xs4 = glides(np, PAIR_BATCH, short.n_signal, seed=SEED + 8)
     m4, s4 = f0_stats(np, xs4, sr)
     sb = {"x": torch.tensor(xs4[:, :, None]),
           "units": torch.tensor(np.random.default_rng(SEED + 9).integers(
-              0, 100, (4, 74))),
+              0, 100, (PAIR_BATCH, 74))),
           "f0_median": torch.tensor(m4), "f0_std": torch.tensor(s4)}
     short_fn = loop.make_train_step(short)
     m_card = {k: float(v) for k, v in short_fn(
@@ -2343,8 +2497,61 @@ def phase_pitch(torch, np, KERNELS, device="cuda"):
           f"receptive field {rf_card} outside the crop {lc}, {rc}")
     emit({"phase": "pitch", "step": "receptive_field",
           "samples": list(rf_card), "band_frames_crop": [lc, rc],
-          "card_s": rf_card_s, "seconds": time.perf_counter() - t_phase})
+          "card_s": rf_card_s})
+
+    # (b)'s commands, once they have ended
+    stats, seconds = fcpe_cli["stats"].result()
+    out, seconds["validate_assets"] = fcpe_cli["assets"].result()
+    check(sorted(stats[0]) == [f"spk{s}" for s in range(PITCH_SPEAKERS)],
+          f"speaker_stats speakers {sorted(stats[0])}")
+    stats_rel = max(abs(stats[0][n][k] - stats[1][n][k])
+                    / max(abs(stats[1][n][k]), 1e-12)
+                    for n in stats[1] for k in ("mean", "std"))
+    check(stats_rel <= STATS_RTOL, f"speaker_stats card vs cpu: {stats_rel}")
+    check("fcpe (pitch teacher): pass" in out,
+          f"validate_assets: {out[-1500:]}")
+    emit({"phase": "pitch", "step": "fcpe_cli", "speaker_stats": stats[0],
+          "speaker_stats_rel_err_vs_cpu": stats_rel,
+          "validate_assets": [ln for ln in out.splitlines()
+                              if ln.startswith("fcpe")],
+          "seconds": seconds, "phase_seconds": time.perf_counter() - t_phase})
     return convert_launches, train_launches, out_dir
+
+
+def pitch_commands(np, root, ckpt, sr, device="cuda") -> dict:
+    """(b) of phase 11, its commands, started now at nice 10 and read at
+    the end of the phase: ``preprocess`` of 4 gliding speakers x 2 clips,
+    then ``speaker_stats --pitch_ckpt`` on the card and on the CPU
+    together (``stats``: a :class:`Later` of the two JSON files and the
+    seconds), and ``validate_assets`` beside them (``assets``)."""
+    from rave_tpu_torch.data.audio_io import save_wav
+    corpus = glides(np, PITCH_SPEAKERS, 2 * PITCH_CLIP, seed=SEED + 5)
+    for s in range(PITCH_SPEAKERS):
+        d = root / "audio" / f"spk{s}"
+        d.mkdir(parents=True)
+        for k in range(2):
+            save_wav(str(d / f"{k}.wav"),
+                     corpus[s, k * PITCH_CLIP:(k + 1) * PITCH_CLIP], sr)
+    db = str(root / "db")
+
+    def stats():
+        seconds = {}
+        _, seconds["preprocess"] = cli_tf32_off_job(
+            "preprocess", "--input_path", str(root / "audio"),
+            "--output_path", db, "--num_workers", "4").result()
+        outs = [root / f"stats_{i}.json" for i in range(2)]
+        jobs = [cli_tf32_off_job("speaker_stats", "--db_path", db,
+                                 "--pitch_ckpt", ckpt, "--out", str(out),
+                                 "--device", dev)
+                for out, dev in zip(outs, (device, "cpu"))]
+        for job, dev in zip(jobs, (device, "cpu")):
+            _, seconds[f"speaker_stats_{dev}"] = job.result()
+        return [json.loads(out.read_text()) for out in outs], seconds
+
+    return {"stats": Later(stats),
+            "assets": cli_tf32_off_job(
+                "validate_assets", "--fcpe_ckpt", ckpt, "--out",
+                str(root / "assets.md"), "--device", device)}
 
 
 # discrete_v3: the residual-VQ and v3 presets at full width; kernel B1 at
@@ -2359,7 +2566,8 @@ STREAM_CHUNKS = 16       # 2048-sample chunks per stage of the AdaIN workflow
 # Adam's first step turns into a move of +-lr in a direction each device
 # draws differently; at 1e-4 the following G step's GAN terms differ by
 # ~1e-3 (ROADMAP C; tests/test_torch_discrete.py)
-PAIR_OVER = ["n_signal=65536", "batch_size=4", "learning_rate=1e-6"]
+PAIR_OVER = ["n_signal=65536", f"batch_size={PAIR_BATCH}",
+             "learning_rate=1e-6"]
 D_STEP_SHARE = 0.999     # of the discriminator's parameters, card vs CPU,
                          # after one D step at the preset's rate
 
@@ -2447,7 +2655,7 @@ def dis_grad_norm(torch, st) -> float:
 
 
 def card_vs_cpu_pair(torch, np, stack, over, counts, reset, device="cuda"):
-    """A D, G pair of ``stack`` with ``over`` at 4 x 65536 (``PAIR_OVER``)
+    """A D, G pair of ``stack`` with ``over`` at 2 x 65536 (``PAIR_OVER``)
     from one seeded state with zero codebooks on the card and on the CPU
     (one thread), the same rows drawn on both: losses, ENC/DEC gradient
     norms and the D step's DIS gradient norm within ``TRAIN_RTOL``,
@@ -2469,7 +2677,7 @@ def card_vs_cpu_pair(torch, np, stack, over, counts, reset, device="cuda"):
              {k: v.cpu() for k, v in card.disc.state_dict().items()})
     cpu.model.load_state_dict(start[0])
     cpu.disc.load_state_dict(start[1])
-    audio = voices(np, 4, short.n_signal, SEED + 2)
+    audio = voices(np, PAIR_BATCH, short.n_signal, SEED + 2)
     sb = {"x": torch.tensor(audio[:, :, None], dtype=torch.float32,
                             device=device)}
     fn, sampler = loop.make_train_step(short), rows_sampler(torch, np)
@@ -2614,7 +2822,8 @@ def phase_discrete(torch, np, KERNELS, card, device="cuda"):
         torch.cuda.synchronize()
         launches = counts()
         check(launches == {"residual_unit": 6, "ci1_conv_forward": 0,
-                           "ci1_conv_dx": 0, "residual_unit_bf16": 0},
+                           "ci1_conv_dx": 0, "residual_unit_bf16": 0,
+                           **NO_CI1_BF16},
               f"discrete forward launches {launches}")
         check(tuple(y.shape) == tuple(x.shape) and bool(
             torch.isfinite(y).all()), "discrete forward shape or values")
@@ -2719,7 +2928,7 @@ def phase_discrete(torch, np, KERNELS, card, device="cuda"):
                                       SEED + 3)[:, :, None],
                                dtype=torch.float32, device=device)}
     expect = {"residual_unit": 6, "ci1_conv_forward": 0, "ci1_conv_dx": 0,
-              "residual_unit_bf16": 0}
+              "residual_unit_bf16": 0, **NO_CI1_BF16}
     train = train_cycles(torch, np, state, loop.make_train_step(cfg), batch,
                          expect, counts, reset, "discrete")
     books = codebooks(state.model)
@@ -2868,7 +3077,7 @@ def phase_v3(torch, np, KERNELS, card, device="cuda"):
                                       SEED + 5)[:, :, None],
                                dtype=torch.float32, device=device)}
     expect = {"residual_unit": 0, "ci1_conv_forward": 0, "ci1_conv_dx": 0,
-              "residual_unit_bf16": 0}
+              "residual_unit_bf16": 0, **NO_CI1_BF16}
     step_fn = loop.make_train_step(cfg)
     train = train_cycles(torch, np, state, step_fn, batch, expect, counts,
                          reset, "v3")
@@ -3064,17 +3273,13 @@ def native_v2_export(torch, state, device="cuda", after=()) -> dict:
     """13(a)'s program: the offline phase's v2 weights in a stream of
     2048-sample chunks, serialized under ``rave_tpu_torch/_build/`` and its
     ``forward`` package compiled by a niced subprocess (started after
-    phase 5, so that the compile overlaps phases 6-12), then the
-    packages of ``after`` (17(e)'s bf16 ``forward``)."""
+    phase 5, so that the work overlaps phases 6-12), then the packages
+    of ``after`` (17(e)'s bf16 ``forward``)."""
     from rave_tpu_torch.config import build_config
-    from rave_tpu_torch.export.streaming import StreamingRAVE
-    from rave_tpu_torch.ops.kernels.build import BUILD_DIR
     cfg = build_config(["v2"], ["fused_kernels=true"])
-    exp = BUILD_DIR / "native_v2"
-    t0 = time.perf_counter()
-    StreamingRAVE(cfg, state, chunk_size=CHUNK, device=device).serialize(exp)
-    return {"dir": exp, "serialize_s": time.perf_counter() - t0,
-            **compile_in_background([(exp, "forward", device), *after])}
+    exp, spec = stream_spec(torch, "native_v2", cfg, state, chunk_size=CHUNK)
+    return {"dir": exp, **compile_in_background(
+        [(exp, "forward", device, spec), *after])}
 
 
 def native_convert_export(np, run, wavs, device="cuda") -> dict:
@@ -3120,9 +3325,13 @@ def phase_native_convert(torch, np, conv, card, device="cuda"):
     from rave_tpu_torch.export import native
 
     t_phase = time.perf_counter()
-    t0 = time.perf_counter()
-    host = native.build_host(device)
-    build_s = time.perf_counter() - t0
+    if HOST_BUILD:
+        host = HOST_BUILD[0].result()
+        build_s = HOST_BUILD[0].seconds
+    else:
+        host = native.build_host(device)
+        build_s = time.perf_counter() - t_phase
+    wait_s = time.perf_counter() - t_phase
     out, x = conv["dir"], conv["x"]
     res, y, carry, pkg = serve_native(torch, np, out, "convert", x, host,
                                       device, compiled_packages(conv)[out])
@@ -3136,7 +3345,8 @@ def phase_native_convert(torch, np, conv, card, device="cuda"):
     res.update(hold_host(np, "convert", y, want, carry, want_carry))
     x0 = torch.tensor(x[0].reshape(1, -1, 1), device=device)
     res["profile"] = package_profile(torch, pkg, (caches, x0, emb))
-    res.update(host_build_s=build_s, compile_wait_s=conv["compile_wait_s"],
+    res.update(host_build_s=build_s, host_build_wait_s=wait_s,
+               compile_wait_s=conv["compile_wait_s"],
                phase_seconds=time.perf_counter() - t_phase)
     emit({"phase": "native", "step": "convert", "card": card,
           "config": "v2_fork (phase 9's trained run)", "chunk": VC_CHUNK,
@@ -3202,7 +3412,7 @@ def phase_native(torch, np, KERNELS, state, audio, nv2, pgc, convert_res,
     live = np.concatenate([c.reshape(-1).cpu().numpy()
                            for c in sr.caches])
     fwd.update(hold_host(np, "forward", y, want, carry, live))
-    fwd["serialize_s"] = nv2["serialize_s"]
+    fwd["serialize_s"] = nv2["serialize_s"][exp]
     fwd["compile_wait_s"] = nv2["compile_wait_s"]
     per = {"graph": [], "eager": []}
     sr.process_file_scan(signal)    # captures the chunk step
@@ -3310,8 +3520,8 @@ def phase_native(torch, np, KERNELS, state, audio, nv2, pgc, convert_res,
 # ----------------------------------------------------------------------
 
 A6_STREAM_CHUNKS = 32    # 2048-sample chunks streamed per config
-A6_PAIR_OVER = ["n_signal=65536", "batch_size=4", "learning_rate=1e-6",
-                "log_epsilon=1e-3"]
+A6_PAIR_OVER = ["n_signal=65536", f"batch_size={PAIR_BATCH}",
+                "learning_rate=1e-6", "log_epsilon=1e-3"]
 SPHERE_TOL = 1e-4        # max |a - b| of unit vectors and their angles
 
 
@@ -3487,7 +3697,7 @@ def a6_stream(torch, np, KERNELS, cfg, state, audio, card, device="cuda"):
 
 
 def a6_pair(torch, np, stack, over, counts, reset, device="cuda"):
-    """A D, G pair of ``stack`` at 4 x 65536 (``A6_PAIR_OVER``:
+    """A D, G pair of ``stack`` at 2 x 65536 (``A6_PAIR_OVER``:
     ``learning_rate=1e-6`` and ``log_epsilon=1e-3``, ROADMAP C) from one
     seeded state on the card and on the CPU (one thread), every draw the
     same on both: losses, ENC/DEC gradient norms and the D step's DIS
@@ -3504,9 +3714,9 @@ def a6_pair(torch, np, stack, over, counts, reset, device="cuda"):
                                card.model.state_dict().items()})
     cpu.disc.load_state_dict({k: v.cpu() for k, v in
                               card.disc.state_dict().items()})
-    audio = voices(np, 4, short.n_signal, SEED + 2)
+    audio = voices(np, PAIR_BATCH, short.n_signal, SEED + 2)
     x = torch.tensor(audio[:, :, None], dtype=torch.float32)
-    d = a6_draws(torch, short, 4, short.n_signal, SEED + 5)
+    d = a6_draws(torch, short, PAIR_BATCH, short.n_signal, SEED + 5)
     rest = {k: v for k, v in d.items() if k != "eps"}
     eps = d.get("eps")
     eps_card = None if eps is None else eps.to(device)
@@ -3732,7 +3942,6 @@ def phase_a6(torch, np, KERNELS, audio, card, v3, device="cuda"):
                             device))
     out.update(a6_spherical(torch, np, KERNELS, audio, card, device))
     out["v3_native"] = a6_native_v3(torch, np, audio, card, v3, device)
-    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
     emit({"phase": "a6", "card": card, "b1_launches": out,
           "phase_seconds": time.perf_counter() - t_phase})
     return out
@@ -3741,7 +3950,7 @@ def phase_a6(torch, np, KERNELS, audio, card, v3, device="cuda"):
 def a6_v3_export(torch, device="cuda", before=(), after=()):
     """The full-width ``v3`` stream with AdaIN states that hold statistics
     (learning off, so every block transfers), serialized under
-    ``rave_tpu_torch/_build/``, its ``forward`` compiled into an
+    ``rave_tpu_torch/_build/`` and its ``forward`` compiled into an
     AOTInductor package by a subprocess at the lowest CPU priority
     (``nice 19``, :func:`compile_in_background`), after the packages of
     ``before`` (phase 13(a)'s v2 ``forward``) and before those of
@@ -3754,7 +3963,6 @@ def a6_v3_export(torch, device="cuda", before=(), after=()):
     from rave_tpu_torch.export.streaming import StreamingRAVE
     from rave_tpu_torch.models.blocks import AdaIN
     from rave_tpu_torch.models.rave import RAVE
-    from rave_tpu_torch.ops.kernels.build import BUILD_DIR
 
     cfg = build_config(["v3"])
     torch.manual_seed(SEED)
@@ -3775,47 +3983,78 @@ def a6_v3_export(torch, device="cuda", before=(), after=()):
         adain.append(s)
     sr = StreamingRAVE(cfg, state, chunk_size=CHUNK, device=device,
                        adain_state=adain)
-    exp = BUILD_DIR / "a6_native_v3"
-    sr.serialize(exp)
+    exp, spec = stream_spec(torch, "a6_native_v3", cfg, state,
+                            chunk_size=CHUNK, adain_state=adain)
     return {"stream": sr, "dir": exp, "plain": base,
-            **compile_in_background([*before, (exp, "forward", device),
+            **compile_in_background([*before, (exp, "forward", device, spec),
                                      *after])}
 
 
 BACKGROUND = []          # every compile subprocess, killed when main ends
+HOST_BUILD = []          # the C++ host's build, started before phase 1
+JOBS = []                # every Job started
 
 
 def compile_in_background(items) -> dict:
     """A subprocess at ``nice 19`` compiling, in turn, the AOTInductor
     package of each ``(export dir, prefix, device)`` of ``items`` (see
-    :func:`compiled_packages`)."""
+    :func:`compiled_packages`); an item with a fourth entry, the spec of
+    :func:`stream_spec`, is first serialized into its export dir there,
+    so that this process spends no time on it.  Its output goes to a
+    temporary file (a pipe left unread would stall it)."""
+    import tempfile
+    log = tempfile.TemporaryFile("w+")
     proc = subprocess.Popen(
-        [sys.executable, "-c", "import json, os, sys; os.nice(19); "
+        [sys.executable, "-c", "import json, os, sys, time; os.nice(19)\n"
+         "import torch\n"
          "from rave_tpu_torch.export.native import compile_package\n"
-         "for d, pre, dev in zip(*[iter(sys.argv[1:])] * 3):\n"
+         "from rave_tpu_torch.export.streaming import StreamingRAVE\n"
+         "for d, pre, dev, spec in zip(*[iter(sys.argv[1:])] * 4):\n"
+         "    if spec:\n"
+         "        t0 = time.perf_counter()\n"
+         "        s = torch.load(spec, weights_only=False)\n"
+         "        StreamingRAVE(s['cfg'], s['state'], device=dev,\n"
+         "                      **s['kw']).serialize(d)\n"
+         "        print(json.dumps({'dir': d, 'serialize_s':\n"
+         "                          time.perf_counter() - t0}), flush=True)\n"
          "    p, s = compile_package(d, pre, dev)\n"
          "    print(json.dumps([str(p), s]), flush=True)",
-         *[str(a) for item in items for a in item]],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+         *[str(a) for item in items for a in (*item, "")[:4]]],
+        stdout=log, stderr=subprocess.STDOUT, text=True)
     BACKGROUND.append(proc)
-    return {"compile": proc, "dirs": [item[0] for item in items]}
+    return {"compile": proc, "log": log, "dirs": [item[0] for item in items]}
+
+
+def stream_spec(torch, name, cfg, state, **kw) -> tuple:
+    """A stream for :func:`compile_in_background` to serialize: ``cfg``,
+    the weights ``state`` and ``StreamingRAVE``'s keywords ``kw`` saved
+    as ``rave_tpu_torch/_build/<name>.spec.pt``.  Returns the export dir
+    ``_build/<name>`` and the spec's path."""
+    from rave_tpu_torch.ops.kernels.build import BUILD_DIR
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    spec = BUILD_DIR / f"{name}.spec.pt"
+    torch.save({"cfg": cfg, "state": state, "kw": kw}, spec)
+    return BUILD_DIR / name, spec
 
 
 def compiled_packages(v3) -> dict:
     """The packages the subprocess of :func:`compile_in_background`
     (``v3["compile"]``) compiled, once it has ended: ``{export dir:
     (package, compile seconds)}``; the seconds waited for it (at the
-    first call) in ``v3["compile_wait_s"]``."""
+    first call) in ``v3["compile_wait_s"]``, the serialize seconds of
+    each dir it serialized in ``v3["serialize_s"]``."""
     from pathlib import Path
     if "packages" not in v3:
         proc = v3["compile"]
         t0 = time.perf_counter()
         try:
-            text = proc.communicate(timeout=NATIVE_TIMEOUT)[0]
+            proc.wait(timeout=NATIVE_TIMEOUT)
         finally:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+        v3["log"].seek(0)
+        text = v3["log"].read()
         v3["compile_wait_s"] = time.perf_counter() - t0
         check(proc.returncode == 0, f"package compiles: {text[-2000:]}")
         lines = [json.loads(ln) for ln in text.strip().splitlines()
@@ -3824,6 +4063,10 @@ def compiled_packages(v3) -> dict:
               f"package compiles: {len(lines)} of {len(v3['dirs'])}")
         v3["packages"] = {d: (Path(p), sec)
                           for d, (p, sec) in zip(v3["dirs"], lines)}
+        v3["serialize_s"] = {
+            Path(r["dir"]): r["serialize_s"] for r in
+            (json.loads(ln) for ln in text.strip().splitlines()
+             if ln.startswith('{"dir"'))}
     return v3["packages"]
 
 
@@ -3874,23 +4117,22 @@ LOSS_RTOL = 1e-4         # card vs CPU of each ported distance
 def hybrid_export(torch, device="cuda"):
     """The full-width ``hybrid`` stream (``fused_kernels=true``, random
     weights from the seed: the weights of phase 15's offline model) of
-    2048-sample chunks, serialized under ``rave_tpu_torch/_build/`` before
-    phase 6, so that :func:`a6_v3_export`'s subprocess compiles its
-    ``forward`` after ``v3``'s.  Returns the stream and the directory."""
+    2048-sample chunks, to be serialized under ``rave_tpu_torch/_build/``
+    and compiled by :func:`a6_v3_export`'s subprocess after ``v3``'s
+    ``forward``.  Returns the stream, the directory, the weights and the
+    subprocess's item."""
     from rave_tpu_torch.config import build_config
     from rave_tpu_torch.export.streaming import StreamingRAVE
     from rave_tpu_torch.models.rave import RAVE
-    from rave_tpu_torch.ops.kernels.build import BUILD_DIR
 
     cfg = build_config(["hybrid"], HYBRID_OVER)
     torch.manual_seed(SEED)
     state = RAVE(cfg, device=device, train_mode=False).state_dict()
     sr = StreamingRAVE(cfg, state, chunk_size=CHUNK, device=device)
-    exp = BUILD_DIR / "hybrid_native"
-    t0 = time.perf_counter()
-    sr.serialize(exp)
+    exp, spec = stream_spec(torch, "hybrid_native", cfg, state,
+                            chunk_size=CHUNK)
     return {"stream": sr, "dir": exp, "state": state,
-            "serialize_s": time.perf_counter() - t0}
+            "item": (exp, "forward", device, spec)}
 
 
 def hybrid_stream(torch, np, KERNELS, model, sr, audio, card):
@@ -3958,6 +4200,7 @@ def hybrid_native(torch, np, audio, card, hyb, v3, device="cuda"):
     from rave_tpu_torch.export import native
 
     sr, exp = hyb["stream"], hyb["dir"]
+    compiled = compiled_packages(v3)[exp]
     prog = torch.export.load(exp / "forward.pt2").module()
     carry = [c.clone() for c in sr.init_caches]
     sr.reset()
@@ -3970,7 +4213,6 @@ def hybrid_native(torch, np, audio, card, hyb, v3, device="cuda"):
             err = max(err, float((yp - sr.forward(c)).abs().max()))
     check(err <= EXPORT_TOL, f"hybrid forward.pt2 vs live: {err}")
     del prog
-    compiled = compiled_packages(v3)[exp]
     host = native.build_host(device)
     n = NATIVE_VC_BLOCKS
     signal = audio[0, :n * CHUNK].astype(np.float32)
@@ -3981,7 +4223,7 @@ def hybrid_native(torch, np, audio, card, hyb, v3, device="cuda"):
     live = np.concatenate([c.reshape(-1).cpu().numpy() for c in sr.caches])
     res.update(hold_host(np, "hybrid forward", y, want, carry, live))
     ranks = sorted({c.dim() for c in sr.caches})
-    res.update(serialize_max_abs_err=err, serialize_s=hyb["serialize_s"],
+    res.update(serialize_max_abs_err=err, serialize_s=v3["serialize_s"][exp],
                n_caches=len(sr.caches), cache_ranks=ranks,
                compiled_in_background=True)
     emit({"phase": "hybrid", "step": "native", "card": card,
@@ -4350,7 +4592,7 @@ def phase_parallel(torch, np, KERNELS, audio, state_v2, card, torchrun,
         for st in res["dp"]["steps"]:
             want = {"residual_unit": 16, "ci1_conv_forward": 3,
                     "ci1_conv_dx": 3 if st["kind"] == "G" else 0,
-                    "residual_unit_bf16": 0}
+                    "residual_unit_bf16": 0, **NO_CI1_BF16}
             check(st["launches"] == want,
                   f"rank {r} {st['kind']} launches {st['launches']}")
         check(res["time_sharded"]["launches"]["residual_unit"] == 16,
@@ -4630,17 +4872,14 @@ def phase_bf16_kernels(torch, ru, launches_per_shape) -> dict:
 
 def bf16_export(torch, state, device="cuda") -> dict:
     """17(e)'s program: the offline phase's v2 weights in a bf16 stream of
-    2048-sample chunks, serialized under ``rave_tpu_torch/_build/`` before
-    phase 6; its ``forward`` package compiles in phase 13's niced
-    subprocess after the float32 one (:func:`native_v2_export`)."""
+    2048-sample chunks, serialized under ``rave_tpu_torch/_build/`` and
+    compiled into a ``forward`` package by phase 13's niced subprocess
+    after the float32 one (:func:`native_v2_export`; ``item``)."""
     from rave_tpu_torch.config import build_config
-    from rave_tpu_torch.export.streaming import StreamingRAVE
-    from rave_tpu_torch.ops.kernels.build import BUILD_DIR
     cfg = build_config(["v2"], BF16_OVER)
-    exp = BUILD_DIR / "native_bf16"
-    t0 = time.perf_counter()
-    StreamingRAVE(cfg, state, chunk_size=CHUNK, device=device).serialize(exp)
-    return {"dir": exp, "serialize_s": time.perf_counter() - t0}
+    exp, spec = stream_spec(torch, "native_bf16", cfg, state,
+                            chunk_size=CHUNK)
+    return {"dir": exp, "item": (exp, "forward", device, spec)}
 
 
 def rel_l2(a, b) -> float:
@@ -4668,7 +4907,8 @@ def phase_bf16(torch, np, KERNELS, ru, audio, state, card, nv2, bfx,
 
     bf = torch.bfloat16
     only = lambda n: {"residual_unit": 0, "ci1_conv_forward": 0,  # noqa: E731
-                      "ci1_conv_dx": 0, "residual_unit_bf16": n}
+                      "ci1_conv_dx": 0, "residual_unit_bf16": n,
+                      **NO_CI1_BF16}
     # (a) the kernel: the v2 forward's shapes (each (C, d) once in the
     # encoder and once in the generator, batch 4) and discrete's C = 384
     T0 = SAMPLES // 16
@@ -4677,6 +4917,8 @@ def phase_bf16(torch, np, KERNELS, ru, audio, state, card, nv2, bfx,
                        (512, T0 // 32, (1, 3))):
         for d in dils:
             per_shape[("offline_v2", BATCH, T, C, d)] = 2
+            # phase 18's bf16 v2 and v2_fork D or G step (batch 8)
+            per_shape[("train_v2", TRAIN_BATCH, T, C, d)] = 2
     for d in (1, 3, 9):
         per_shape[("offline_discrete", BATCH, T0 // 16, 384, d)] = 2
     kern = phase_bf16_kernels(torch, ru, per_shape)
@@ -4834,13 +5076,14 @@ def phase_bf16(torch, np, KERNELS, ru, audio, state, card, nv2, bfx,
     # stream of the same chunks
     host = native.build_host(device)
     exp = bfx["dir"]
+    compiled = compiled_packages(nv2)[exp]
     manifest = (exp / "io_manifest.txt").read_text()
     check("bfloat16" in manifest, "bf16 manifest without bfloat16 caches")
     n = BF16_HOST_BLOCKS * CHUNK
     signal = audio[0, :n].astype(np.float32)
     xb = signal.reshape(BF16_HOST_BLOCKS, CHUNK)
     res, yh, _, _ = serve_native(torch, np, exp, "forward", xb, host, device,
-                                 compiled_packages(nv2)[exp])
+                                 compiled)
     want = sr.process_file(signal).reshape(BF16_HOST_BLOCKS, CHUNK)
     hrel = rel_l2(yh, want)
     check(hrel <= BF16_HOST_REL_L2, f"bf16 host vs Python stream: {hrel}")
@@ -4850,7 +5093,7 @@ def phase_bf16(torch, np, KERNELS, ru, audio, state, card, nv2, bfx,
           "rel_l2_vs_python_stream": hrel,
           "max_abs_err_vs_python_stream": float(np.abs(yh - want).max()),
           "rel_l2_bound": BF16_HOST_REL_L2,
-          "serialize_s": bfx["serialize_s"],
+          "serialize_s": nv2["serialize_s"][exp],
           **{k: res[k] for k in ("blocks", "block_ms_p50", "block_ms_p80",
                                  "pipelined_rtf", "blocking_rtf", "loaded_s",
                                  "compile_s", "package_mb", "cuda_graph")},
@@ -4859,6 +5102,504 @@ def phase_bf16(torch, np, KERNELS, ru, audio, state, card, nv2, bfx,
             "convert": convert_launches["residual_unit_bf16"],
             "stream_chunk": stream_launches["residual_unit_bf16"]
             / BF16_STREAM_CHUNKS, **kern}
+
+
+# phase 18: bf16 training (ROADMAP A10b) and the bf16 instances of B2/B3
+CI1_BF16_ULPS = 1.0      # B2/B3-bf16 vs float32 arithmetic rounded once
+# B1-bf16's backward (autograd of the bf16 twin) against autograd of the
+# plain bf16 composition: the same arithmetic, but cuDNN's bf16 weight
+# gradients split their sums in an order that may change between calls
+B1_BF16_GRAD_ULPS = 2.0
+# a bf16 G step card vs CPU (both bf16): the two devices' convs sum in
+# another order, which flips a bf16 rounding now and then; the float32
+# step of the same weights on the card, which misses every bf16 rounding,
+# is the control that must miss it.  Set between the two readings of the
+# largest relative error over the losses and ENC/DEC gradient norms at 2
+# x 65536 (NVIDIA H100 80GB HBM3, 700.00 W): the bf16 step 6.3e-3 (the
+# ENC norm), the float32 control 2.8e-2 (the audio distance)
+BF16_TRAIN_RTOL = 1.3e-2
+BF16_CLI_STEPS = 4       # steps of the bf16 train command
+# 18(f): every other preset the JAX package trains in bf16, at its own
+# width (the stack, its overrides, the batch rows); ``hybrid`` is refused
+# at build in both packages (ROADMAP C)
+BF16_PRESETS = {
+    "v1": (["v1"], [], PAIR_BATCH),
+    "onnx": (["onnx"], [], PAIR_BATCH),
+    "raspberry": (["raspberry"], [], PAIR_BATCH),
+    "v2_noise_wasserstein": (["v2", "noise", "wasserstein"], [], PAIR_BATCH),
+    "v2_spherical_causal": (["v2", "spherical", "causal"], [], PAIR_BATCH),
+    "v3": (["v3"], [], PAIR_BATCH),
+    "discrete": (["discrete"], [], PAIR_BATCH),
+    "discrete_v3": (["discrete_v3"], [], PAIR_BATCH),
+    "v2_fork_pitch": (["v2_fork", "pitch"], [], PAIR_BATCH),
+    # four distinct speakers: at two rows the cohort norm maps every
+    # embedding to +-1
+    "v2_fork_scratch": (["v2_fork"], [
+        "train_speaker_encoder=true", "speaker_classes=4",
+        "latent_adversary_weight=0.5"], 4),
+}
+BF16_PRESET_SAMPLES = 65536
+
+
+def ci1_bf16_case(torch, ci, x, w, gy, pad) -> dict:
+    """B2-bf16 and B3-bf16 at one shape against float32 arithmetic on the
+    same bf16 operands rounded once (bf16 ulps of max |y|), and the cuDNN
+    bf16 twin's distance from the same."""
+    out = {}
+    for name, cuda_fn, plain_fn, arg in (
+            ("fwd", ci.conv1d_ci1_cuda, ci.conv1d_ci1_reference, x),
+            ("dx", ci.conv1d_ci1_dx_cuda, ci.conv1d_ci1_dx_reference, gy)):
+        got = cuda_fn(arg, w, pad)
+        twin = plain_fn(arg, w, pad)
+        ref = plain_fn(arg.float(), w.float(), pad).to(torch.bfloat16)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.bfloat16 and got.shape == ref.shape,
+              f"B2/B3-bf16 {name}: {got.dtype} {tuple(got.shape)}")
+        ulp = bf16_ulp(ref.float())
+        err = (got.float() - ref.float()).abs().max().item()
+        out[name] = {"max_abs_err": err, "ulps": err / ulp,
+                     "twin_ulps": (twin.float() - ref.float()).abs().max()
+                     .item() / ulp}
+    return out
+
+
+def phase_bf16_ci1_kernels(torch, ci, main_shapes) -> dict:
+    """18(a): B2-bf16 and B3-bf16 over phase 2's grid (odd T, unaligned
+    windows, k up to 16, co up to 64, T = 1), then at the main path's
+    shapes with call and device times, the cuDNN twin's (the library
+    call) and the byte bound."""
+    bf = torch.bfloat16
+    worst = {n: {"max_abs_err": 0.0, "ulps": 0.0, "twin_ulps": 0.0}
+             for n in ("fwd", "dx")}
+
+    def hold(r, what):
+        for name, v in r.items():
+            check(v["ulps"] <= CI1_BF16_ULPS,
+                  f"B2/B3-bf16 {name} {what}: {v['ulps']} ulps")
+            for k in v:
+                worst[name][k] = max(worst[name][k], v[k])
+
+    n = 0
+    cases = [(B, T, k, pad, 16) for T in (777, 1000, 4096, 8192, 91232)
+             for k in (5, 15) for pad in (((k - 1) // 2, k // 2), (k - 1, 0))
+             for B in (1, 16)]
+    cases += [(3, T, k, pad, (1, 24, 64)[i % 3]) for i, (T, k, pad) in
+              enumerate((T, k, pad) for T in (1, 31, 1001, 8193)
+                        for k in (2, 8, 16)
+                        for pad in (((k - 1) // 2, k // 2), (0, k - 1)))]
+    for B, T, k, pad, co in cases:
+        x, w, gy = (t.to(bf) for t in ci1_inputs(torch, B, T, k, co=co,
+                                                 seed=n))
+        hold(ci1_bf16_case(torch, ci, x, w, gy, pad),
+             f"T={T} k={k} pad={pad} B={B} co={co}")
+        n += 1
+    # dx and dw through the autograd.Function against autograd of the
+    # plain bf16 composition (dw is cuDNN's in both)
+    x, w, gy = (t.to(bf) for t in ci1_inputs(torch, 4, 8192, 15, seed=99))
+    args = [x.clone().requires_grad_(True), w.clone().requires_grad_(True)]
+    ref = [x.clone().requires_grad_(True), w.clone().requires_grad_(True)]
+    ci.conv1d_ci1(*args, (7, 7)).backward(gy)
+    ci.conv1d_ci1_reference(*ref, (7, 7)).backward(gy)
+    grad_ulps = [(a.grad.float() - r.grad.float()).abs().max().item()
+                 / bf16_ulp(r.grad.float()) for a, r in zip(args, ref)]
+    check(all(u <= B1_BF16_GRAD_ULPS for u in grad_ulps),
+          f"B2/B3-bf16 autograd: dx, dw {grad_ulps} ulps")
+    emit({"phase": "bf16_train", "step": "ci1_kernels", "cases": n,
+          "worst": worst, "ulps_bound": CI1_BF16_ULPS,
+          "autograd_ulps_dx_dw": grad_ulps})
+
+    shapes = []
+    for B, T in main_shapes:
+        x, w, gy = (t.to(bf) for t in ci1_inputs(torch, B, T, 15, seed=T))
+        r = ci1_bf16_case(torch, ci, x, w, gy, (7, 7))
+        hold(r, f"main-path shape {(B, T)}")
+        row = {"shape": [B, T, 16], "k": 15, "pad": [7, 7],
+               "dx_launch": ci.dx_launch_info(B, 16, 15, T, bf)}
+        with torch.no_grad():
+            for name, cuda_fn, plain_fn, arg, kname in (
+                    ("fwd", ci.conv1d_ci1_cuda, ci.conv1d_ci1_reference, x,
+                     "ci1_fwd_kernel"),
+                    ("dx", ci.conv1d_ci1_dx_cuda, ci.conv1d_ci1_dx_reference,
+                     gy, "ci1_dx_kernel")):
+                kernel = lambda: cuda_fn(arg, w, (7, 7))  # noqa: E731
+                plain = lambda: plain_fn(arg, w, (7, 7))  # noqa: E731
+                # call times: plain, kernel, kernel, plain; best of each
+                plain_ms = cuda_ms(torch, plain)
+                ms = cuda_ms(torch, kernel)
+                ms2 = cuda_ms(torch, kernel)
+                plain_ms2 = cuda_ms(torch, plain)
+                flops = 2 * B * T * 16 * 15
+                nbytes = 2 * (B * T + B * T * 16 + 15 * 16)
+                t_ops = flops / PEAK_F32_FLOPS * 1e3
+                t_bytes = nbytes / PEAK_BYTES * 1e3
+                row[name] = {**r[name], "ms": min(ms, ms2),
+                             "plain_ms": min(plain_ms, plain_ms2),
+                             "device_ms": named_device_ms(torch, kernel,
+                                                          kname),
+                             "plain_device_ms": device_ms(torch, plain),
+                             "bound_ms": max(t_ops, t_bytes),
+                             "ops_ms": t_ops, "bytes_ms": t_bytes}
+        shapes.append(row)
+    emit({"phase": "bf16_train", "step": "ci1_kernel_times",
+          "shapes": shapes})
+    return {"worst": worst, "shapes": shapes}
+
+
+def phase_bf16_b1_backward(torch, ru) -> dict:
+    """18(b): B1-bf16's backward at the three B = 8 step shapes: the
+    gradients of all five operands through the kernel's
+    ``autograd.Function`` against autograd of the plain bf16 composition,
+    within ``B1_BF16_GRAD_ULPS`` of each gradient's max |g|: the wiring
+    of the backward, which is autograd of that composition."""
+    bf = torch.bfloat16
+    rows = []
+    for C, T, d in ((128, SAMPLES // 64, 9), (256, SAMPLES // 256, 9),
+                    (512, SAMPLES // 512, 3)):
+        base = [a.to(bf) for a in unit_inputs(torch, TRAIN_BATCH, C, T,
+                                               seed=C + 7)]
+        dev = base[0].device
+        g = torch.randn(TRAIN_BATCH, C, T, device=dev, generator=torch
+                        .Generator(device=dev.type).manual_seed(C)).to(bf)
+        args = [a.clone().requires_grad_(True) for a in base]
+        ref = [a.clone().requires_grad_(True) for a in base]
+        pl, pr = pads(3, d)
+        ru.residual_unit(*args, d, pl, pr).backward(g)
+        ru.residual_unit_reference(*ref, d, pl, pr).backward(g)
+        torch.cuda.synchronize()
+        ulps = {n: (a.grad.float() - r.grad.float()).abs().max().item()
+                / bf16_ulp(r.grad.float())
+                for n, a, r in zip(("x", "w1", "b1", "w2", "b2"), args, ref)}
+        check(all(a.grad.dtype == bf for a in args),
+              f"B1-bf16 backward dtypes {[a.grad.dtype for a in args]}")
+        check(max(ulps.values()) <= B1_BF16_GRAD_ULPS,
+              f"B1-bf16 backward {(TRAIN_BATCH, T, C)} d={d}: {ulps} ulps")
+        rows.append({"shape": [TRAIN_BATCH, T, C], "dilation": d,
+                     "ulps": ulps})
+    emit({"phase": "bf16_train", "step": "b1_backward", "shapes": rows,
+          "ulps_bound": B1_BF16_GRAD_ULPS})
+    return {"shapes": rows}
+
+
+def phase_bf16_train(torch, np, KERNELS, card, cli_res, device="cuda"):
+    """Phase 18 (see the module docstring): B2/B3-bf16, B1-bf16's
+    backward, the full-width bf16 ``v2_fork`` and ``v2`` steps, and the
+    bf16 train command's result (run earlier, while phase 9's db
+    existed).  Returns the launches and the kernels' numbers."""
+    from rave_tpu_torch.config import build_config
+    from rave_tpu_torch.ops.kernels import ci1_conv as ci
+    from rave_tpu_torch.ops.kernels import residual_unit as ru
+    from rave_tpu_torch.train import loop, schedules
+
+    t_phase = time.perf_counter()
+    counts = lambda: {k.name: k.launches for k in KERNELS}  # noqa: E731
+
+    def reset():
+        for k in KERNELS:
+            k.launches = 0
+
+    ci1 = phase_bf16_ci1_kernels(torch, ci, CI1_MAIN)
+    b1 = phase_bf16_b1_backward(torch, ru)
+    torch.cuda.empty_cache()
+
+    def launches_of(b1_n, fwd_n, dx_n):
+        return {k.name: 0 for k in KERNELS} | {
+            "residual_unit_bf16": b1_n, "ci1_conv_forward_bf16": fwd_n,
+            "ci1_conv_dx_bf16": dx_n}
+
+    # (c) the full-width bf16 v2_fork, frozen speaker encoder: D, G, G, G
+    cfg = build_config(["v2_fork"], BF16_OVER)
+    cfg32 = build_config(["v2_fork"], ["fused_kernels=true"])
+    torch.manual_seed(SEED)
+    state = loop.TrainState(cfg, device=device, step=cfg.phase_1_duration)
+    step_fn = loop.make_train_step(cfg)
+    batch = train_batch(torch, np, TRAIN_BATCH, cfg.n_signal, 148,
+                        device=device)
+    groups = {"dis": list(state.disc.parameters()),
+              "enc": state.enc_params, "dec": state.dec_params,
+              "speaker": list(state.model.speaker_encoder.parameters())}
+    kind_of = lambda st: ("D" if schedules.is_discriminator_step(  # noqa
+        st.step, st.cfg) else "G")
+    cycle = []
+    for _ in range(4):
+        kind = kind_of(state)
+        before = {g: [p.detach().clone() for p in ps]
+                  for g, ps in groups.items()}
+        reset()
+        values = {k: float(v) for k, v in step_fn(state, batch).items()}
+        torch.cuda.synchronize()
+        got = counts()
+        want = launches_of(16, 3, 3 if kind == "G" else 0)
+        check(got == want, f"bf16 v2_fork {kind} step launches {got}")
+        check(sorted(values) == TRAIN_METRICS
+              and all(np.isfinite(v) for v in values.values()),
+              f"bf16 v2_fork {kind} step metrics {values}")
+        moved = {g: any(not torch.equal(p, q) for p, q in zip(ps, before[g]))
+                 for g, ps in groups.items()}
+        want_moved = {"dis": kind == "D", "enc": kind == "G",
+                      "dec": kind == "G", "speaker": False}
+        check(moved == want_moved, f"bf16 v2_fork {kind} step moved {moved}")
+        check(all(p.dtype == torch.float32 for ps in groups.values()
+                  for p in ps), "bf16 v2_fork: parameters not float32")
+        cycle.append({"kind": kind, "launches": got, "metrics": values})
+    check([c["kind"] for c in cycle] == ["D", "G", "G", "G"],
+          f"bf16 v2_fork cycle {[c['kind'] for c in cycle]}")
+    del before
+
+    # timed: a bf16 cycle and a float32 one of the same weights, in turns
+    f32 = loop.TrainState(cfg32, device=device, step=state.step)
+    f32.model.load_state_dict(state.model.state_dict())
+    f32.disc.load_state_dict(state.disc.state_dict())
+    f32_fn = loop.make_train_step(cfg32)
+    for _ in range(2):   # float32 warm-up: a D and a G step
+        f32_fn(f32, batch)
+    times = {"bfloat16": {"D": [], "G": []}, "float32": {"D": [], "G": []}}
+    peak = {}
+    for name, st, fn in (("bfloat16", state, step_fn),
+                         ("float32", f32, f32_fn)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(TIMED_CYCLES * 4):
+            kind = kind_of(st)
+            times[name][kind].append(cuda_ms(torch, lambda: fn(st, batch),
+                                              iters=1, warmup=0))
+        peak[name] = torch.cuda.max_memory_allocated() / 2 ** 20
+    del f32, f32_fn
+    step_ms = {n: {k: statistics.median(v) for k, v in t.items()}
+               for n, t in times.items()}
+    del state, step_fn, batch
+    torch.cuda.empty_cache()
+
+    # one short bf16 G step of PAIR_BATCH rows, card vs CPU, both in bf16
+    # (the CPU's threads, as phase 6's float32 step); the float32 step of
+    # the same weights on the card is the control
+    over = ["n_signal=65536", f"batch_size={PAIR_BATCH}"]
+    short = build_config(["v2_fork"], BF16_OVER + over)
+    short32 = build_config(["v2_fork"], ["fused_kernels=true", *over])
+    g_step = short.phase_1_duration + 1
+    torch.manual_seed(SEED + 1)
+    card_st = loop.TrainState(short, device=device, step=g_step)
+    weights = ({k: v.cpu() for k, v in card_st.model.state_dict().items()},
+               {k: v.cpu() for k, v in card_st.disc.state_dict().items()})
+    cpu_st = loop.TrainState(short, device="cpu", step=g_step)
+    ctrl_st = loop.TrainState(short32, device=device, step=g_step)
+    for st in (cpu_st, ctrl_st):
+        st.model.load_state_dict(weights[0])
+        st.disc.load_state_dict(weights[1])
+    sb = train_batch(torch, np, PAIR_BATCH, short.n_signal, 74,
+                     seed=SEED + 4, device=device)
+    short_fn = loop.make_train_step(short)
+    reset()
+    m_card = {k: float(v) for k, v in short_fn(card_st, sb).items()}
+    short_launches = counts()
+    check(short_launches == launches_of(16, 2, 2),
+          f"bf16 short G step launches {short_launches}")
+    m_cpu = {k: float(v) for k, v in short_fn(
+        cpu_st, {k: v.cpu() for k, v in sb.items()}).items()}
+    m_ctrl = {k: float(v) for k, v in loop.make_train_step(short32)(
+        ctrl_st, sb).items()}
+
+    def norms(st):
+        return {g: float(torch.sqrt(sum((p.grad.double() ** 2).sum()
+                                        for p in ps)))
+                for g, ps in (("enc", st.enc_params), ("dec", st.dec_params))}
+
+    def rel_to_cpu(m, n):
+        rel = {k: abs(m[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12)
+               for k in m_cpu if m_cpu[k] != 0 or m[k] != 0}
+        rel.update({f"grad_norm_{g}": abs(n[g] - n_cpu[g]) / n_cpu[g]
+                    for g in n_cpu})
+        return rel
+
+    n_card, n_cpu, n_ctrl = norms(card_st), norms(cpu_st), norms(ctrl_st)
+    rel, rel_ctrl = rel_to_cpu(m_card, n_card), rel_to_cpu(m_ctrl, n_ctrl)
+    emit({"phase": "bf16_train", "step": "card_vs_cpu", "rel_err": rel,
+          "float32_control_rel_err": rel_ctrl, "rtol": BF16_TRAIN_RTOL})
+    check(max(rel.values()) <= BF16_TRAIN_RTOL,
+          f"bf16 card vs cpu G step: {rel}")
+    check(max(rel_ctrl.values()) > BF16_TRAIN_RTOL,
+          f"the float32 control passes the bf16 card vs cpu rtol: "
+          f"{rel_ctrl}")
+    del card_st, cpu_st, ctrl_st
+    emit({"phase": "bf16_train", "step": "v2_fork", "card": card,
+          "config": "v2_fork", "overrides": BF16_OVER,
+          "batch": [TRAIN_BATCH, cfg.n_signal, 1],
+          "start_step": cfg.phase_1_duration, "warmup_cycle": cycle,
+          "step_ms": step_ms, "step_ms_all": times, "peak_mem_mb": peak,
+          "card_vs_cpu": {"rel_err": rel, "rtol": BF16_TRAIN_RTOL,
+                          "rows": PAIR_BATCH,
+                          "float32_control_rel_err": rel_ctrl,
+                          "launches": short_launches,
+                          "card": m_card, "grad_norms_card": n_card,
+                          "grad_norms_cpu": n_cpu}})
+
+    # (d) the full-width bf16 v2: one D and one G step, B1-bf16 only
+    vcfg = build_config(["v2"], BF16_OVER)
+    torch.manual_seed(SEED)
+    vst = loop.TrainState(vcfg, device=device, step=vcfg.phase_1_duration)
+    vfn = loop.make_train_step(vcfg)
+    vbatch = {"x": train_batch(torch, np, TRAIN_BATCH, vcfg.n_signal, 1,
+                               device=device)["x"]}
+    v2_steps = {}
+    for _ in range(2):   # v2 from phase_1_duration: D, then G
+        kind = kind_of(vst)
+        reset()
+        values = {k: float(v) for k, v in vfn(vst, vbatch).items()}
+        torch.cuda.synchronize()
+        got = counts()
+        check(got == launches_of(16, 0, 0),
+              f"bf16 v2 {kind} step launches {got}")
+        check(sorted(values) == TRAIN_V2_METRICS
+              and all(np.isfinite(v) for v in values.values()),
+              f"bf16 v2 {kind} step metrics {values}")
+        v2_steps[kind] = {"launches": got, "metrics": values}
+    check(sorted(v2_steps) == ["D", "G"], f"bf16 v2 steps {sorted(v2_steps)}")
+    del vst, vfn, vbatch
+    torch.cuda.empty_cache()
+    emit({"phase": "bf16_train", "step": "v2", "card": card,
+          "overrides": BF16_OVER, "batch": [TRAIN_BATCH, SAMPLES, 1],
+          "steps": v2_steps, "cli": cli_res})
+    presets = phase_bf16_presets(torch, np, KERNELS, counts, reset,
+                                 device)
+    emit({"phase": "bf16_train", "step": "presets", "card": card,
+          "samples": BF16_PRESET_SAMPLES, "presets": presets,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return {"ci1": ci1, "b1_backward": b1,
+            "launches_v2_fork": {c["kind"]: c["launches"] for c in cycle},
+            "launches_v2": {k: v["launches"] for k, v in v2_steps.items()},
+            "launches_presets": {n: p["launches"]
+                                 for n, p in presets.items()}}
+
+
+def phase_bf16_presets(torch, np, KERNELS, counts, reset, device="cuda"):
+    """18(f): one bf16 D step and one bf16 G step of every preset in
+    ``BF16_PRESETS`` at its own width (``fused_kernels=true``), from
+    ``phase_1_duration``: finite metrics, DIS moving on D and only on D,
+    ENC, DEC (and SPK with a trained speaker encoder) on G and only on G,
+    the parameters float32, every discriminator conv reading bf16."""
+    from rave_tpu_torch.config import build_config
+    from rave_tpu_torch.models.discriminators import WNConv
+    from rave_tpu_torch.train import loop, schedules
+
+    out = {}
+    for name, (stack, extra, rows) in BF16_PRESETS.items():
+        t0 = time.perf_counter()
+        cfg = build_config(stack, BF16_OVER + extra + [
+            f"n_signal={BF16_PRESET_SAMPLES}", f"batch_size={rows}"])
+        torch.manual_seed(SEED)
+        st = loop.TrainState(cfg, device=device, step=cfg.phase_1_duration)
+        fn = loop.make_train_step(cfg)
+        batch = train_batch(torch, np, rows, cfg.n_signal,
+                            cfg.n_signal * 148 // SAMPLES, seed=SEED + 5,
+                            device=device)
+        if not cfg.hubert_units:
+            del batch["units"]
+        if cfg.speaker_classes:
+            batch["speaker"] = torch.arange(rows, device=device)
+        if cfg.pitch_embedding_size:
+            batch["f0_median"] = torch.log(torch.linspace(
+                110.0, 220.0, rows, device=device))
+            batch["f0_std"] = torch.full((rows,), 0.3, device=device)
+        groups = {"dis": list(st.disc.parameters()),
+                  "enc": st.enc_params, "dec": st.dec_params,
+                  "spk": st.spk_params}
+        reads = set()
+        hooks = [m.register_forward_pre_hook(
+            lambda mod, args: reads.add(args[0].dtype))
+            for m in st.disc.modules() if isinstance(m, WNConv)]
+        steps = {}
+        for _ in range(2):
+            kind = ("D" if schedules.is_discriminator_step(st.step, cfg)
+                    else "G")
+            before = {g: [p.detach().clone() for p in ps]
+                      for g, ps in groups.items()}
+            reset()
+            values = {k: float(v) for k, v in fn(st, batch).items()}
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in counts().items() if v}
+            check(all(np.isfinite(v) for v in values.values()),
+                  f"bf16 {name} {kind} step metrics {values}")
+            moved = {g: any(not torch.equal(p, q)
+                            for p, q in zip(ps, before[g]))
+                     for g, ps in groups.items() if ps}
+            want = {g: (g == "dis") == (kind == "D") for g in moved}
+            check(moved == want, f"bf16 {name} {kind} step moved {moved}")
+            steps[kind] = {"metrics": values, "launches": launches}
+        for h in hooks:
+            h.remove()
+        check(sorted(steps) == ["D", "G"], f"bf16 {name} steps "
+              f"{sorted(steps)}")
+        check(reads == {torch.bfloat16}, f"bf16 {name} discriminator "
+              f"reads {reads}")
+        check(all(p.dtype == torch.float32 for ps in groups.values()
+                  for p in ps), f"bf16 {name}: parameters not float32")
+        out[name] = {"rows": rows, "steps": steps,
+                     "launches": {k: v["launches"] for k, v in
+                                  steps.items()},
+                     "seconds": time.perf_counter() - t0}
+        del st, fn, batch, groups, before
+        torch.cuda.empty_cache()
+    return out
+
+
+def bf16_train_cli_job(db, device="cuda") -> dict:
+    """18(e)'s command, started right after phase 9(b)'s train (beside
+    the resume and phase 10(a)): ``python -m rave_tpu_torch.cli train``
+    on a bf16 ``v2_fork`` config (the frozen speaker encoder, B1/B2/B3 in
+    bf16) for ``BF16_CLI_STEPS`` steps from ``phase_1_duration=2`` with a
+    validation at step 3, on phase 9(b)'s db."""
+    from pathlib import Path
+    runs = Path(SMOKE_DIR) / "runs_bf16"
+    over = [*BF16_OVER, "phase_1_duration=2"]
+    return {"runs": runs, "over": over, "job": cli_job(
+        "train", "--config", "v2_fork",
+        *[a for o in over for a in ("--override", o)], "--db_path", db,
+        "--out_path", str(runs), "--max_steps", str(BF16_CLI_STEPS),
+        "--val_every", "3", "--ckpt_every", "0", "--num_workers", "2",
+        "--device", device, what="bf16 train")}
+
+
+def phase_bf16_train_cli(torch, job, device="cuda") -> dict:
+    """18(e): the command of :func:`bf16_train_cli_job` (``job``) has
+    finished its steps and its validation; the run's checkpoint holds
+    float32 tensors only, and ``load_run`` restores it into a float32
+    state (the state ``export`` serves from)."""
+    from rave_tpu_torch.export.streaming import load_run
+
+    runs, over = job["runs"], job["over"]
+    stdout, seconds = job["job"].result()
+    check(f"finished at step {BF16_CLI_STEPS}" in stdout,
+          f"bf16 train did not finish: {stdout[-2000:]}")
+    run = next(runs.iterdir())
+    recs = [json.loads(line) for line in
+            (run / "metrics.jsonl").read_text().splitlines()]
+    val = [rec for rec in recs if "validation" in rec]
+    check(len(val) == 1 and all(
+        math.isfinite(v) for rec in recs for v in rec.values()
+        if isinstance(v, float)), f"bf16 train records {recs}")
+    ckpt = run / "checkpoints" / f"ckpt_{BF16_CLI_STEPS}.pt"
+    saved = torch.load(ckpt, weights_only=True)
+
+    def floats(tree):
+        if torch.is_tensor(tree):
+            return [tree.dtype] if tree.is_floating_point() else []
+        if isinstance(tree, dict):
+            return [d for v in tree.values() for d in floats(v)]
+        if isinstance(tree, (list, tuple)):
+            return [d for v in tree for d in floats(v)]
+        return []
+
+    dtypes = sorted({str(d) for d in floats(saved)})
+    check(dtypes == ["torch.float32"], f"bf16 run checkpoint dtypes {dtypes}")
+    cfg, state = load_run(str(run), device=device)
+    check(cfg.compute_dtype == "bfloat16"
+          and {p.dtype for p in state.model.parameters()} == {torch.float32},
+          "bf16 run reloaded with non-float32 parameters")
+    del state, saved
+    return {"overrides": over, "steps": BF16_CLI_STEPS,
+            "validation": val[0]["validation"],
+            "step0": {k: v for k, v in recs[0].items()
+                      if k.startswith("loss_")},
+            "checkpoint_dtypes": dtypes, "seconds": seconds}
 
 
 def request_audio(np):
@@ -4938,8 +5679,12 @@ def main() -> int:
           "count": torch.cuda.device_count(),
           "capability": list(torch.cuda.get_device_capability(0))})
 
-    # 1. build every kernel from the checkout's sources
+    # 1. build every kernel from the checkout's sources; phase 13's C++
+    # host builds in a thread meanwhile
+    from rave_tpu_torch.export import native
+    HOST_BUILD.append(Later(native.build_host, "cuda"))
     seconds = build_all(KERNELS)
+    HOST_BUILD[0].result()
     ptxas = [line.strip()
              for lib in dict.fromkeys(k.library_path for k in KERNELS)
              for line in lib.with_suffix(".log").read_text().splitlines()
@@ -4974,11 +5719,7 @@ def main() -> int:
 
     # 2. kernels vs plain versions on the card
     max_err, shapes = phase_kernels(torch, ru, per_shape)
-    # shapes the v2_fork train step gives B2/B3: the three MelGAN heads
-    # see real and fake together (B = 16) after the 1245-band-frame crop
-    # per side: 131072 - 2 * 1245 * 16 = 91232 samples, halved twice
-    ci1_main = [(16, 91232), (16, 45616), (16, 22808)]
-    ci1_err, ci1_shapes = phase_ci1_kernels(torch, ci, ci1_main)
+    ci1_err, ci1_shapes = phase_ci1_kernels(torch, ci, CI1_MAIN)
 
     # 3. offline serving at full v2 width
     torch.manual_seed(SEED)
@@ -5080,17 +5821,20 @@ def main() -> int:
     # 14(d)'s v3 package, then 15(d)'s hybrid one, compile in a niced
     # subprocess from here on
     hyb = hybrid_export(torch)
-    v3 = a6_v3_export(torch, after=[(hyb["dir"], "forward", "cuda")])
+    v3 = a6_v3_export(torch, after=[hyb["item"]])
     # 13(a)'s v2 forward package, then 17(e)'s bf16 one, compile in a
     # second niced subprocess
     bfx = bf16_export(torch, model.state_dict())
     nv2 = native_v2_export(torch, model.state_dict(),
-                           after=[(bfx["dir"], "forward", "cuda")])
+                           after=[bfx["item"]])
     try:
         return _phases(torch, np, KERNELS, smi, kind, model, x, audio,
                        launches, max_err, shapes, ci1_err, ci1_shapes, v3,
                        hyb, nv2, bfx)
     finally:
+        for job in JOBS:
+            if job.proc.poll() is None:
+                job.stop()
         for proc in BACKGROUND:
             if proc.poll() is None:
                 proc.kill()
@@ -5101,6 +5845,9 @@ def _phases(torch, np, KERNELS, smi, kind, model, x, audio, launches,
             max_err, shapes, ci1_err, ci1_shapes, v3, hyb, nv2, bfx) -> int:
     """Phases 6-17 and the summary (see :func:`main`)."""
     from rave_tpu_torch.ops.kernels import residual_unit as ru
+    # 9(b)'s corpus and db, made by the CLI at nice 10 from here on
+    vc_db = train_vc_db(np)
+
     # 6. the v2_fork train step
     g_launches = phase_train(torch, np, KERNELS)
 
@@ -5110,37 +5857,40 @@ def _phases(torch, np, KERNELS, smi, kind, model, x, audio, launches,
     # 8. voice-conversion serving of the fork, kernel B1 in convert
     vc_launches = phase_voice_conversion(torch, np, KERNELS)
 
-    # 9. from-scratch speaker training: the step in both norms, the CLI
+    # 9. from-scratch speaker training: (b)'s 12 steps from here on,
+    # beside (a), the step in both norms
+    vc_cli = train_vc_cli_job(vc_db)
     vc_launches_d, vc_launches_g = phase_train_vc_step(torch, np, KERNELS,
                                                        "cohort")
     phase_train_vc_step(torch, np, KERNELS, "batch")
-    run, db, wavs, torchrun = phase_train_vc_cli(torch, np)
+    torch.cuda.empty_cache()
+    run, db, wavs, resume = phase_train_vc_cli(torch, np, vc_cli)
     train_vc_launches = {"D": vc_launches_d, "G": vc_launches_g}
+    # 18(e): the bf16 train command, on phase 9(b)'s db, beside 9(b)'s
+    # resume and phase 10(a)
+    bf16_cli = bf16_train_cli_job(db)
 
     # 10. export: the v2 stream's CUDA graph, programs, host rate, stereo,
-    # latent PCA and realtime host; then the trained run's export and eval
+    # latent PCA and realtime host; then the trained run's export and
+    # eval, beside phase 11
     phase_export_stream(torch, np, KERNELS, model.state_dict(), audio,
                         model, x, smi)
-    phase_export_run(torch, np, run, db, wavs, smi)
-    # 13(b)'s input: the trained run's convert.pt2, copied out of
-    # _smoke/ and compiled by a niced subprocess meanwhile
-    conv = native_convert_export(np, run, wavs)
-    shutil.rmtree(SMOKE_DIR)
+    torchrun = resume()
+    run_jobs = export_run_jobs(run, db, wavs)
 
     # 11. the f0-conditioned fork: convert, FCPE, train, stream, probe
     pitch_convert, pitch_train, pitch_dir = phase_pitch(torch, np, KERNELS)
     # 13(c)'s convert_pg package and 13(d)'s CPU one compile meanwhile
     pg = native_pg_export(torch, pitch_dir)
 
+    phase_export_run(torch, np, run, wavs, run_jobs, smi)
+    # 13(b)'s input: the trained run's convert.pt2, copied out of
+    # _smoke/ and compiled by a niced subprocess meanwhile
+    conv = native_convert_export(np, run, wavs)
+    bf16_cli = phase_bf16_train_cli(torch, bf16_cli)
+
     # 12. the discrete and v3 presets, kernel B1 at C = 384
     dv3 = phase_discrete_v3(torch, np, KERNELS, smi)
-
-    # 13. native: (b) the trained run's convert; forward, convert_pg and
-    # the refusals of the C++ host
-    native_convert = phase_native_convert(torch, np, conv, smi)
-    phase_native(torch, np, KERNELS, model.state_dict(), audio, nv2, pg,
-                 native_convert, smi)
-    shutil.rmtree(SMOKE_DIR)
 
     # 14. v1 / onnx / raspberry, the noise generators, the Wasserstein and
     # spherical heads; the v3 native package
@@ -5149,6 +5899,14 @@ def _phases(torch, np, KERNELS, smi, kind, model, x, audio, launches,
     # 15. the hybrid preset: mel front end, GRU layers, the loss library
     hybrid = phase_hybrid(torch, np, KERNELS, audio, smi, hyb, v3)
 
+    # 13. native, after 14 and 15 so that its packages have compiled: (b)
+    # the trained run's convert; forward, convert_pg and the refusals of
+    # the C++ host
+    native_convert = phase_native_convert(torch, np, conv, smi)
+    phase_native(torch, np, KERNELS, model.state_dict(), audio, nv2, pg,
+                 native_convert, smi)
+    shutil.rmtree(SMOKE_DIR)
+
     # 16. data parallelism over two ranks, the CLI on NCCL, time sharding
     par = phase_parallel(torch, np, KERNELS, audio, model.state_dict(), smi,
                          torchrun)
@@ -5156,6 +5914,10 @@ def _phases(torch, np, KERNELS, smi, kind, model, x, audio, launches,
     # 17. bf16 serving: B1-bf16, the batch, the stream, convert, the host
     bf16 = phase_bf16(torch, np, KERNELS, ru, audio, model.state_dict(), smi,
                       nv2, bfx)
+
+    # 18. bf16 training: B2/B3-bf16, B1-bf16's backward, the v2_fork and
+    # v2 steps
+    bf16_train = phase_bf16_train(torch, np, KERNELS, smi, bf16_cli)
 
     # summary
     def total(key, path="offline_v2"):
@@ -5268,9 +6030,43 @@ def _phases(torch, np, KERNELS, smi, kind, model, x, audio, launches,
                      else "bytes"),
         "library_ms": None, "ulps_vs_twin": bf16["worst"]["ulps"],
         "launches_bf16_convert": bf16["convert"],
+        "launches_bf16_v2_fork_train_step": {
+            k: v["residual_unit_bf16"]
+            for k, v in bf16_train["launches_v2_fork"].items()},
+        "launches_bf16_v2_train_step": {
+            k: v["residual_unit_bf16"]
+            for k, v in bf16_train["launches_v2"].items()},
         "launches_bf16_stream_chunk": bf16["stream_chunk"],
-        "offline_discrete": {k: bsum(k, "offline_discrete") for k in (
-            "ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms")}})
+        **{path: {k: bsum(k, path) for k in (
+            "ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms")}
+           for path in ("offline_discrete", "train_v2")}})
+    # B2/B3-bf16: one launch per MelGAN head and bf16 v2_fork step (B3
+    # on G steps); the twin is one cuDNN call, so it is the library time
+    ci1b = bf16_train["ci1"]
+    for name, key, line in (("ci1_conv_forward_bf16", "fwd", 46),
+                            ("ci1_conv_dx_bf16", "dx", 73)):
+        per = lambda f: sum(s[key][f] for s in ci1b["shapes"])  # noqa
+        dev = [s[key]["device_ms"] for s in ci1b["shapes"]]
+        src = "rave_tpu_torch/csrc/ci1_conv.cu"
+        kernels.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": f"rave_tpu/ops/pallas/ci1_conv.py:{line}",
+            "launches": bf16_train["launches_v2_fork"]["G"][name],
+            "launches_bf16_v2_fork_train_step": {
+                k: v[name] for k, v in bf16_train["launches_v2_fork"].items()},
+            "max_abs_err": max(ci1b["worst"][key]["max_abs_err"],
+                               max(s[key]["max_abs_err"]
+                                   for s in ci1b["shapes"])),
+            "ulps_vs_float32_rounded_once": ci1b["worst"][key]["ulps"],
+            "twin_ulps_vs_float32_rounded_once":
+                ci1b["worst"][key]["twin_ulps"],
+            "ms": per("ms"), "plain_ms": per("plain_ms"),
+            "device_ms": None if None in dev else sum(dev),
+            "plain_device_ms": per("plain_device_ms"),
+            "bound_ms": per("bound_ms"),
+            "bound_by": ("operations" if per("ops_ms") >= per("bytes_ms")
+                         else "bytes"),
+            "library_ms": per("plain_ms")})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -117,7 +117,7 @@ def build_parser() -> argparse.ArgumentParser:
     ex.add_argument("--compute_dtype", choices=["float32", "bfloat16"],
                     default=None,
                     help="dtype of the encoder and decoder in the exported "
-                         "steps (default: the run's; bfloat16 serves only)")
+                         "steps (default: the run's)")
     ex.add_argument("--device", default="cuda",
                     help="torch device the programs are exported on")
 

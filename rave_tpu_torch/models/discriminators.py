@@ -24,6 +24,14 @@ shift-and-add ci=1 conv) are not ported: native
 ``F.conv1d``/``F.conv2d`` give the same values and gradients.  The
 MelGAN head conv takes kernels B2/B3 (:func:`~rave_tpu_torch.ops.kernels.
 ci1_conv.conv1d_ci1`) under the JAX package's shape gate.
+
+Every discriminator runs in its input's dtype (the train step feeds it
+the compute dtype): each conv casts its float32 kernel to it and, in
+bf16, adds the bias after the conv, as the JAX package's ``WNConv``
+rounds twice; the leaky-ReLU slopes are JAX's weak bf16 scalars
+(:func:`~rave_tpu_torch.ops.precision.leaky_relu`); the spectral members
+take the STFT in float32 and cast it back to the signal's dtype; the
+Descript preprocess stays in float32.
 """
 
 from __future__ import annotations
@@ -41,13 +49,14 @@ from ..config import RAVEConfig
 from ..ops.conv import _uniform, normalize_kernel
 from ..ops.pqmf import kaiser_filter
 from ..ops.kernels.ci1_conv import conv1d_ci1
+from ..ops.precision import leaky_relu
 from ..ops.stft import stft
 
 NEG_SLOPE = 0.2
 
 
 def _lrelu(x: torch.Tensor, slope: float = NEG_SLOPE) -> torch.Tensor:
-    return F.leaky_relu(x, slope)
+    return leaky_relu(x, slope)
 
 
 class WNConv(nn.Module):
@@ -91,17 +100,27 @@ class WNConv(nn.Module):
                 and k <= 16 and x.shape[2] >= 8192 and pl + pr == k - 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        kernel = self.kernel()
-        if len(self.kernel_size) == 1 and self.takes_ci1(x):
-            return conv1d_ci1(x, kernel, self.padding[0]) + self.bias[:, None]
-        conv = F.conv1d if len(self.kernel_size) == 1 else F.conv2d
+        """The conv in ``x``'s dtype.  In bf16 the bias is added after
+        the conv, in bf16 (two roundings, as the JAX package's); in
+        float32 it rides inside the conv."""
+        kernel = self.kernel().to(x.dtype)
+        nd = len(self.kernel_size)
+        if nd == 1 and self.takes_ci1(x):
+            return conv1d_ci1(x, kernel, self.padding[0]) + self.bias.to(
+                x.dtype)[:, None]
+        conv = F.conv1d if nd == 1 else F.conv2d
         if all(pl == pr for pl, pr in self.padding):
             pad = tuple(pl for pl, _ in self.padding)
         else:
             x = F.pad(x, [p for lr in reversed(self.padding) for p in lr])
             pad = 0
-        return conv(x, kernel, self.bias, stride=self.strides, padding=pad,
-                    dilation=self.dilation, groups=self.groups)
+        if x.dtype != torch.bfloat16:
+            return conv(x, kernel, self.bias, stride=self.strides,
+                        padding=pad, dilation=self.dilation,
+                        groups=self.groups)
+        y = conv(x, kernel, None, stride=self.strides, padding=pad,
+                 dilation=self.dilation, groups=self.groups)
+        return y + self.bias.to(x.dtype).reshape(-1, *(1,) * nd)
 
 
 def _avg_pool_1d(x: torch.Tensor, window: int = 2) -> torch.Tensor:
@@ -261,7 +280,7 @@ class MultiScaleSpectralDiscriminator(nn.Module):
         out = []
         for i, scale in enumerate(self.scales):
             s = _uncentred_stft(x, scale, "spectral")
-            z = torch.stack([s.real, s.imag], 1).transpose(2, 3)
+            z = torch.stack([s.real, s.imag], 1).transpose(2, 3).to(x.dtype)
             out.append(getattr(self, f"spec{i}")(z))
         return out
 
@@ -283,7 +302,7 @@ class MultiScaleSpectralDiscriminator1d(nn.Module):
         out = []
         for i, scale in enumerate(self.scales):
             s = _uncentred_stft(x, scale, "spectral_1d")
-            z = torch.cat([s.real, s.imag], -1).transpose(1, 2)
+            z = torch.cat([s.real, s.imag], -1).transpose(1, 2).to(x.dtype)
             out.append(getattr(self, f"spec1d{i}")(z))
         return out
 
@@ -339,7 +358,7 @@ class UnivNetResolutionDiscriminator(nn.Module):
         pad = (self.n_fft - self.hop) // 2
         sig = F.pad(x, (pad, pad), mode="reflect")[:, 0]
         s = stft(sig, self.n_fft, self.hop, win_length=self.win, center=False)
-        z = s.abs()[:, None]             # (B, 1, frames, bins)
+        z = s.abs()[:, None].to(x.dtype)  # (B, 1, frames, bins)
         return _convnet(self.convs, z, after_activation=True)
 
 

@@ -10,6 +10,13 @@ computes ``F.conv1d(F.pad(x, pad), w)``: its forward is kernel B2
 CPU tensor each step runs its plain PyTorch twin, and only for that
 reason; on a CUDA tensor it launches the kernel or raises.
 
+The operands are all float32 (``FORWARD``, ``DX``) or all bf16
+(``FORWARD_BF16``, ``DX_BF16``: the Pallas kernels' contract on bf16,
+float32 sums rounded once into bf16); :func:`kernels_for` picks the
+instance by dtype.  The plain twins run in the operands' dtype: on bf16
+CPU tensors PyTorch's conv and its data gradient also sum in float32
+and round once.
+
 Layouts are the port's: ``x`` ``(B, 1, T)``, ``w`` ``(co, 1, k)`` (the
 ``F.conv1d`` weight), output ``(B, co, T)``, ``pad = (left, right)`` with
 ``left + right == k - 1``.
@@ -31,6 +38,21 @@ _ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 FORWARD = CudaKernel("ci1_conv_forward", "ci1_conv.cu", "ci1_conv_forward",
                      _ARGS)
 DX = CudaKernel("ci1_conv_dx", "ci1_conv.cu", "ci1_conv_dx", _ARGS)
+FORWARD_BF16 = CudaKernel("ci1_conv_forward_bf16", "ci1_conv.cu",
+                          "ci1_conv_forward_bf16", _ARGS)
+DX_BF16 = CudaKernel("ci1_conv_dx_bf16", "ci1_conv.cu", "ci1_conv_dx_bf16",
+                     _ARGS)
+# per operand dtype: the forward, the data gradient and the symbol that
+# reports the data gradient's launch
+INSTANCES = {
+    torch.float32: (FORWARD, DX, "ci1_conv_dx_launch_info"),
+    torch.bfloat16: (FORWARD_BF16, DX_BF16, "ci1_conv_dx_bf16_launch_info"),
+}
+
+
+def kernels_for(dtype: torch.dtype) -> tuple[CudaKernel, CudaKernel]:
+    """The ``(forward, data gradient)`` instances of an operand dtype."""
+    return INSTANCES[dtype][:2]
 
 
 def conv1d_ci1_reference(x, w, pad) -> torch.Tensor:
@@ -48,8 +70,10 @@ def conv1d_ci1_dx_reference(g, w, pad) -> torch.Tensor:
 def _check(name, big, w, pad, channels: int) -> None:
     if big.device != w.device:
         raise ValueError(f"{name}: all tensors must be on one device")
-    if big.dtype != torch.float32 or w.dtype != torch.float32:
-        raise TypeError(f"{name}: the CUDA kernel takes float32 only")
+    if big.dtype not in INSTANCES or w.dtype != big.dtype:
+        raise TypeError(f"{name}: the CUDA kernel takes float32 or bfloat16 "
+                        f"operands of one dtype, got {big.dtype} and "
+                        f"{w.dtype}")
     co, ci, k = w.shape
     if ci != 1 or not 1 <= k <= MAX_TAPS or not 1 <= co <= MAX_CHANNELS:
         raise ValueError(f"{name}: w {tuple(w.shape)} is outside the "
@@ -75,29 +99,31 @@ def _launch(kernel, big, w, pad_arg, out) -> None:
 
 
 def conv1d_ci1_cuda(x, w, pad) -> torch.Tensor:
-    """Launch kernel B2 (no autograd)."""
+    """Launch kernel B2 of ``x``'s dtype (no autograd)."""
     _check("ci1_conv_forward", x, w, pad, 1)
     x, w = x.detach().contiguous(), w.detach().contiguous()
     out = x.new_empty((x.shape[0], w.shape[0], x.shape[2]))
-    _launch(FORWARD, x, w, pad[0], out)
+    _launch(kernels_for(x.dtype)[0], x, w, pad[0], out)
     return out
 
 
 def conv1d_ci1_dx_cuda(g, w, pad) -> torch.Tensor:
-    """Launch kernel B3 (no autograd)."""
+    """Launch kernel B3 of ``g``'s dtype (no autograd)."""
     _check("ci1_conv_dx", g, w, pad, w.shape[0])
     g, w = g.detach().contiguous(), w.detach().contiguous()
     dx = g.new_empty((g.shape[0], 1, g.shape[2]))
-    _launch(DX, g, w, pad[1], dx)
+    _launch(kernels_for(g.dtype)[1], g, w, pad[1], dx)
     return dx
 
 
-def dx_launch_info(B: int, co: int, k: int, T: int) -> dict:
-    """What one launch of kernel B3 at this shape uses on the current
-    card: blocks, threads per block, shared memory and registers per
-    thread."""
+def dx_launch_info(B: int, co: int, k: int, T: int,
+                   dtype: torch.dtype = torch.float32) -> dict:
+    """What one launch of kernel B3 (the instance of ``dtype``) at this
+    shape uses on the current card: blocks, threads per block, shared
+    memory and registers per thread."""
     info = (ctypes.c_int * 4)()
-    DX.query("ci1_conv_dx_launch_info", B, co, k, T, info)
+    _, dx, symbol = INSTANCES[dtype]
+    dx.query(symbol, B, co, k, T, info)
     return dict(zip(("blocks", "threads", "smem_bytes", "registers"), info))
 
 

@@ -19,8 +19,12 @@ the weights K-major, input channel fastest (:func:`prepare_weights`):
 The five tensors are all float32 (``KERNEL``, 3xTF32 on the tensor
 cores) or all bf16 (``KERNEL_BF16``, the Pallas kernel's bf16 contract:
 float32 accumulation, the hidden tile and the output each rounded once to
-bf16).  Only serving runs the bf16 instance: the train step refuses
-bf16 (ROADMAP A10b).
+bf16).  bf16 serving and the bf16 train steps run the bf16 instance;
+its backward is autograd of the bf16 twin.  The JAX package has no
+backward kernel, and its fused unit's ``custom_vjp`` backward
+(``rave_tpu/ops/pallas/residual_unit.py`` ``_bwd``, ``jax.vjp`` of
+``_reference_impl``) raises on bf16 operands, so its bf16 train step
+differentiates the unfused unit: the arithmetic this backward follows.
 """
 
 from __future__ import annotations
@@ -129,8 +133,11 @@ def launch_info(B: int, C: int, T: int, k: int, dilation: int,
 
 class _ResidualUnit(torch.autograd.Function):
     """Kernel forward; backward through autograd of the plain composition
-    in the operands' dtype (in bf16 what the JAX package's VJP computes;
-    no train step runs it yet, ROADMAP A10b)."""
+    in the operands' dtype.  In bf16 that is the VJP of the JAX package's
+    unfused unit, which its bf16 train step differentiates (the fused
+    unit's ``custom_vjp`` raises on bf16 operands); the CPU tests hold it
+    against that VJP, and ``chip_smoke.py`` phase 18 its wiring on the
+    card."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, dilation, pad_left, pad_right):

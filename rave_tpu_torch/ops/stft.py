@@ -6,7 +6,10 @@ Port of ``hann_window``, ``stft``, ``mel_filterbank`` and
 outside any Pallas kernel. The layout at the boundary stays the JAX
 package's: time-major ``(..., frames, n_fft // 2 + 1)``. The JAX
 package's hand-written VJP of its framing is a TPU lowering workaround;
-here autograd differentiates ``torch.stft``. ``mel_filterbank`` is a
+here autograd differentiates ``torch.stft``. A bf16 signal takes the
+JAX package's route: the frames are windowed in bf16 and the FFT runs
+on them widened to float32 (``torch.stft`` takes no bf16).
+``mel_filterbank`` is a
 numpy copy, read by the data pipeline's mel-k-means units, the
 mel-scaled spectral distances (``num_mels``) and the hybrid encoder's
 mel front end.
@@ -92,12 +95,31 @@ def stft(x: torch.Tensor, n_fft: int, hop_length: int,
     if flat.shape[-1] < n_fft:
         raise ValueError(f"signal length {flat.shape[-1]} shorter than "
                          f"frame {n_fft}")
+    if x.dtype == torch.bfloat16:
+        return _stft_bf16(flat, window, hop_length, normalized).reshape(
+            *lead, -1, n_fft // 2 + 1)
     spec = torch.stft(flat, n_fft, hop_length, n_fft, window, center=False,
                       normalized=False, onesided=True, return_complex=True)
     if normalized:
         spec = spec / torch.sqrt(torch.sum(window * window))
     return spec.transpose(-1, -2).reshape(*lead, spec.shape[-1],
                                           spec.shape[-2])
+
+
+def _stft_bf16(flat: torch.Tensor, window: torch.Tensor, hop_length: int,
+               normalized: bool) -> torch.Tensor:
+    """The JAX package's STFT of a bf16 signal ``(N, T)`` (padded):
+    frames windowed in bf16 (each product rounded to bf16), ``rfft`` of
+    the frames widened to float32, ``normalized`` dividing by the float32
+    root of the bf16 window's squared sum.  The framing runs on a float32
+    view, so that its gradient sums the overlapping frames in float32
+    and rounds once, as the JAX package's overlap-add does."""
+    frames = flat.float().unfold(-1, window.shape[0], hop_length)
+    frames = frames.to(torch.bfloat16) * window
+    spec = torch.fft.rfft(frames.float(), dim=-1)
+    if normalized:
+        spec = spec / torch.sqrt(torch.sum(window.float() ** 2))
+    return spec
 
 
 @lru_cache(maxsize=None)

@@ -61,7 +61,14 @@ family, with or without the noise branch):
   ``autograd.grad`` and ``backward``) and so are the metrics.  Every
   rank's state stays equal to the others'.  Only the train and eval
   steps couple the ranks (:func:`~rave_tpu_torch.parallel.mesh.
-  batch_sharded_step`); serving and export stay rank-local.
+  batch_sharded_step`); serving and export stay rank-local;
+* under ``compute_dtype=bfloat16`` the encoder and the decoder run in
+  bf16 (:class:`~rave_tpu_torch.models.rave.RAVE`), and so does the
+  discriminator: real and fake are cast to bf16 for its one batched
+  pass, its last maps go back to float32 for the GAN loss, and feature
+  matching takes bf16 differences and float32 means.  The parameters,
+  the optimizers and the other losses stay float32, as in the JAX
+  package's bf16 step.
 """
 
 from __future__ import annotations
@@ -78,6 +85,7 @@ from ..models.discriminators import build_discriminator, member_sub_count
 from ..models.rave import RAVE, serving_mode
 from ..ops import losses as L
 from ..ops.pqmf import _pqmf_kernels
+from ..ops.precision import compute_dtype
 from ..parallel import mesh
 from . import schedules
 
@@ -106,17 +114,6 @@ def spk_group(cfg: RAVEConfig) -> tuple:
     return g
 
 
-def check_trainable(cfg: RAVEConfig) -> None:
-    """Raise ``NotImplementedError`` for a config the train step does not
-    run: ``compute_dtype=bfloat16`` (serving only until ROADMAP A10b ports
-    the bf16 discriminator passes and B1's bf16 backward)."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"training with compute_dtype {cfg.compute_dtype!r} is not "
-            "ported to rave_tpu_torch yet (ROADMAP A10b); train in float32 "
-            "and serve in bfloat16 (export --compute_dtype bfloat16)")
-
-
 class TrainState:
     """Generator, discriminator, integer step, the optimizers (``spk_opt``
     is None when :func:`spk_group` is empty), the latent noise generator
@@ -131,7 +128,6 @@ class TrainState:
 
     def __init__(self, cfg: RAVEConfig, device="cuda", step: int = 0,
                  seed: int = 0):
-        check_trainable(cfg)
         device = resolve_device(device)
         self.cfg = cfg
         self.model = RAVE(cfg, device=device)
@@ -178,7 +174,7 @@ class TrainState:
 # ----------------------------------------------------------------------
 
 def _feature_matching(cfg, feats_real, feats_fake) -> torch.Tensor:
-    total = feats_real[0][0].new_zeros(())
+    total = feats_real[0][0].new_zeros((), dtype=torch.float32)
     skip = cfg.num_skipped_features
     for fr, ff in zip(feats_real, feats_fake):
         fr, ff = fr[skip:], ff[skip:]
@@ -204,17 +200,22 @@ def _sub_weights(cfg):
 
 def _gan_terms(cfg, disc, x, y):
     """``(loss_dis, loss_adv, feature_matching)`` from one discriminator
-    pass over real and fake together (``x``, ``y``: ``(B, T, 1)``)."""
+    pass over real and fake together (``x``, ``y``: ``(B, T, 1)``), in
+    the compute dtype; the scores go back to float32 for the GAN loss."""
     gan = L.GAN_LOSSES[cfg.gan_loss]
     B = x.shape[0]
-    feats = disc(torch.cat([x, y], dim=0).transpose(1, 2))
+    both = torch.cat([x, y], dim=0)
+    cdt = compute_dtype(cfg.compute_dtype)
+    if cdt != torch.float32:
+        both = both.to(cdt)
+    feats = disc(both.transpose(1, 2))
     feats_real = [[f[:B] for f in chain] for chain in feats]
     feats_fake = [[f[B:] for f in chain] for chain in feats]
     weights = _sub_weights(cfg)
     loss_dis = x.new_zeros(())
     loss_adv = x.new_zeros(())
     for i, (fr, ff) in enumerate(zip(feats_real, feats_fake)):
-        _dis, _adv = gan(fr[-1], ff[-1])
+        _dis, _adv = gan(fr[-1].to(x.dtype), ff[-1].to(x.dtype))
         w = weights[i] if weights is not None else 1.0
         loss_dis = loss_dis + w * _dis
         loss_adv = loss_adv + w * _adv
@@ -223,6 +224,8 @@ def _gan_terms(cfg, disc, x, y):
 
 def _class_ce(logits: torch.Tensor, labels: torch.Tensor,
               classes: int) -> torch.Tensor:
+    if logits.dtype == torch.bfloat16:
+        logits = logits.float()
     oh = F.one_hot(labels, classes).to(logits.dtype)
     return -torch.mean(torch.sum(F.log_softmax(logits, dim=-1) * oh, -1))
 
@@ -480,9 +483,9 @@ def make_train_step(cfg: RAVEConfig):
     to the other random tensors of the step (see the module docstring;
     each left out is drawn from ``state.generator``).  Metric values are
     0-d tensors on that device (or 0.0 for an untaken term), plus
-    ``beta`` and ``warmed_up`` of the step taken.  A bf16 config raises
-    (:func:`check_trainable`)."""
-    check_trainable(cfg)
+    ``beta`` and ``warmed_up`` of the step taken.  A ``compute_dtype``
+    other than float32 and bfloat16 raises ``ValueError``."""
+    compute_dtype(cfg.compute_dtype)
 
     def train_step(state: TrainState, batch: Mapping,
                    eps: Optional[torch.Tensor] = None, sampler=None,

@@ -47,8 +47,7 @@ from ..data.dataset import DataLoader, make_dataset, split_dataset
 from ..models.rave import serving_mode
 from ..parallel import mesh
 from .checkpoint import CheckpointManager, save_config
-from .loop import (TrainState, check_trainable, make_eval_step,
-                   make_train_step)
+from .loop import TrainState, make_eval_step, make_train_step
 
 LOG_EVERY = 50
 
@@ -270,7 +269,6 @@ def train_main(args) -> None:
 
 def _train_main(args, device) -> None:
     cfg = build_config(args.config or ["v2"], args.override)
-    check_trainable(cfg)
     if args.batch:
         cfg.batch_size = args.batch
     if args.max_steps:

@@ -6,8 +6,11 @@ mel front end; without its GRU layers, which the JAX package cannot run
 in bf16, so both packages refuse them), ``v1`` and ``v2_fork``'s offline
 ``convert``; the dtype every conv, transposed conv, PQMF analysis,
 latent head and speaker encoder reads, against the JAX package's, from
-flax's method interceptor under ``jax.eval_shape``; the train step's
-refusal.
+flax's method interceptor under ``jax.eval_shape``; ``v2`` + ``noise``
++ ``wasserstein`` (the JAX draws handed to the port), ``v2`` +
+``spherical``, ``onnx``, ``raspberry`` and ``discrete_v3``; the bf16
+train state and step building, ``float16`` refused; the generator
+convs' bf16 bias gradients summed in float32.
 
 Tolerances: the relative L2 distance of the audio (or of the latent for
 ``encode``), stated per case, set between the bf16 port's distance from
@@ -19,6 +22,8 @@ trunk's last op before ``astype(float32)``, AdaIN's promotion), and
 sums in another order, which flips a rounding now and then; from width
 128 on those flips spread through the layers (ROADMAP C).
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,6 +40,7 @@ from rave_tpu_torch.ops.conv import Conv1d, ConvTranspose1d
 from rave_tpu_torch.train import loop
 
 TINY = ["capacity=4", "ratios=[2,2]", "dilations=[[1,3],[1,3]]"]
+V1_TINY = ["capacity=4", "ratios=[2,2]", "latent_size=8"]
 W128 = ["capacity=128", "ratios=[2]", "dilations=[[1,3]]"]
 MEL = ["mel_n_fft=512", "mel_hop=16", "encoder_ratios=[2,2]",
        "encoder_dilations=[[1],[1]]", "decoder_gru_layers=0"]
@@ -47,7 +53,16 @@ CASES = {
                                        "codebook_size=32"], 2.5e-3),
     "v3": (["v3"], TINY + ["latent_size=8"], 3e-4),
     "hybrid": (["hybrid"], TINY + MEL, 2.5e-3),
-    "v1": (["v1"], ["capacity=4", "ratios=[2,2]", "latent_size=8"], 5e-3),
+    "v1": (["v1"], V1_TINY, 5e-3),
+    "v2_noise_wasserstein": (["v2", "noise", "wasserstein"],
+                             TINY + ["noise_augmentation=8"], 2.5e-3),
+    "v2_spherical": (["v2", "spherical"], TINY, 4.2e-3),
+    # at their own capacities (32, 16)
+    "onnx": (["onnx"], V1_TINY[1:], 7e-3),
+    "raspberry": (["raspberry"], V1_TINY[1:], 6e-3),
+    "discrete_v3": (["discrete_v3"], TINY + ["latent_size=8",
+                                             "num_quantizers=2",
+                                             "codebook_size=32"], 3e-3),
 }
 T = 8192
 
@@ -111,6 +126,24 @@ def _v1_noise(cfg, B, key):
         -1.0, 1.0)))
 
 
+def _draws(case, cfg, key, B=2) -> dict:
+    """The JAX forward's random draws of ``key`` for the port: v1's noise
+    branch; the augmentation channels and the noise branch (one key for
+    both) of ``v2`` + ``noise`` + ``wasserstein``."""
+    if case == "v1":
+        return {"noise": _v1_noise(cfg, B, key)}
+    if case != "v2_noise_wasserstein":
+        return {}
+    n = math.prod(cfg.noise_ratios)
+    aug = np.array(jax.random.normal(
+        key, (B, T // cfg.total_ratio(), cfg.noise_augmentation)))
+    noise = np.array(jax.random.uniform(
+        key, (B, T // cfg.n_band // n, cfg.n_band, n), jnp.float32, -1.0,
+        1.0))
+    return {"aug": torch.from_numpy(aug.transpose(0, 2, 1).copy()),
+            "noise": torch.from_numpy(noise)}
+
+
 def _within_and_control(name, got_bf16, got_f32, want, tol):
     err, ctrl = _rel(got_bf16, want), _rel(got_f32, want)
     assert err <= tol, f"{name}: bf16 port {err:.3g} > {tol:.3g}"
@@ -125,12 +158,12 @@ def test_forward_matches_jax_bf16(case):
     key = jax.random.PRNGKey(6)
     want = np.asarray(jax.jit(lambda v, a, k: m.apply(v, a, k))(
         v, jnp.asarray(x), key))
-    noise = _v1_noise(cfg, 2, key) if case == "v1" else None
+    draws = _draws(case, cfg, key)
     got = {}
     for dtype in ("bfloat16", "float32"):
         port = _port(stack, over, v, dtype)
         with torch.no_grad():
-            got[dtype] = port(torch.from_numpy(x), noise=noise).numpy()
+            got[dtype] = port(torch.from_numpy(x), **draws).numpy()
         if case == "discrete":
             with torch.no_grad():
                 idx = port.encode_indices(torch.from_numpy(x)).numpy()
@@ -270,15 +303,51 @@ def test_bf16_with_gru_layers_is_refused_in_both_packages():
         RAVE(build_config(["hybrid"], over), device="cpu")
 
 
-def test_train_refuses_bf16():
+def test_bf16_train_state_builds_and_float16_is_refused():
+    """A bf16 ``TrainState`` keeps float32 parameters and a bf16 step
+    runs (``tests/test_torch_bf16_train.py`` holds it against the JAX
+    package's); ``compute_dtype=float16`` is refused by the state, the
+    step and the model."""
     cfg = build_config(["v2"], TINY + ["compute_dtype=bfloat16"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A10b"):
-        loop.TrainState(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10b"):
-        loop.make_train_step(cfg)
+    state = loop.TrainState(cfg, device="cpu")
+    assert {p.dtype for p in state.model.parameters()} == {torch.float32}
+    assert {p.dtype for p in state.disc.parameters()} == {torch.float32}
+    assert callable(loop.make_train_step(cfg))
+    f16 = build_config(["v2"], TINY + ["compute_dtype=float16"])
     with pytest.raises(ValueError, match="compute_dtype"):
-        RAVE(build_config(["v2"], TINY + ["compute_dtype=float16"]),
-             device="cpu")
+        loop.make_train_step(f16)
+    with pytest.raises(ValueError, match="compute_dtype"):
+        loop.TrainState(f16, device="cpu")
+    with pytest.raises(ValueError, match="compute_dtype"):
+        RAVE(f16, device="cpu")
+
+
+def test_bf16_conv_bias_gradients_sum_in_float32():
+    """The bias gradient of a bf16 Conv1d and ConvTranspose1d (the
+    generator's convs) is the float32 sum of the bf16 cotangent over
+    batch and time, rounded once to bf16 (the JAX VJP of the bias add
+    with its sum in float32; XLA on the CPU sums it in bf16, ROADMAP C):
+    within one bf16 rounding of a numpy float64 sum."""
+    torch.manual_seed(0)
+    rng = np.random.default_rng(0)
+    for conv in (Conv1d(8, 8, 3, weight_norm=True),
+                 ConvTranspose1d(8, 4, 4, 2, bias=True)):
+        xb = torch.randn(2, 8, 400).to(torch.bfloat16)
+        y = conv(xb)
+        assert y.dtype == torch.bfloat16
+        c = torch.from_numpy(rng.standard_normal(y.shape).astype(
+            np.float32)).to(torch.bfloat16)
+        y.backward(c)
+        want = c.double().sum((0, 2)).numpy()
+        got = conv.bias.grad.double().numpy()
+        assert conv.bias.grad.dtype == torch.float32
+        np.testing.assert_allclose(got, want, rtol=2 ** -8, atol=0)
+        # a bf16 running sum, as XLA's, misses it
+        run = torch.zeros(c.shape[1], dtype=torch.bfloat16)
+        for t in c.permute(0, 2, 1).reshape(-1, c.shape[1]):
+            run = run + t
+        assert np.abs(run.double().numpy() - want).max() > 2 ** -8 * (
+            np.abs(want).max())
 
 
 def test_conv_rounds_twice_in_bf16():

@@ -7,7 +7,9 @@ holds them against these plain twins there.
 
 Tolerances: atol 1e-5, rtol 1e-5 on the forward (15-term float32 sums,
 as ``tests/test_pallas.py``); atol 1e-4, rtol 1e-4 on gradients, whose
-sums run over 16 channels and, for ``dw``, the whole batch and time.
+sums run over 16 channels and, for ``dw``, the whole batch and time.  On
+bf16 operands the twins equal the Pallas kernels bit for bit: both sum
+in float32 and round once into bf16.
 """
 import jax
 import jax.numpy as jnp
@@ -47,27 +49,49 @@ def _port(x, w, g=None):
     return out
 
 
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _as(dtype, *arrays):
+    """The JAX operands in ``dtype`` and the port's (layouts converted)
+    holding the same values."""
+    jdt, tdt = DTYPES[dtype]
+    jx = [jnp.asarray(a, jdt) for a in arrays]
+    return jx, [t.to(tdt) for t in _port(*(np.asarray(a.astype(jnp.float32))
+                                           for a in jx))]
+
+
+def _equal_or_close(got, want, dtype, tol):
+    got = got.float().numpy()
+    want = np.asarray(want.astype(jnp.float32))
+    if dtype == "bfloat16":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("T,pad", [(1000, (7, 7)), (4096, (7, 7)),
                                    (777, (14, 0))])
-def test_plain_forward_matches_pallas_interpret(T, pad):
+def test_plain_forward_matches_pallas_interpret(T, pad, dtype):
     x, w, _ = _inputs(2, T, sum(pad) + 1, 16, 0)
-    want = np.asarray(_pallas_fwd(jnp.asarray(x), jnp.asarray(w), pad,
-                                  tile=256, interpret=True))
-    xt, wt = _port(x, w)
-    got = ci1_conv.conv1d_ci1_reference(xt, wt, pad).numpy()
-    np.testing.assert_allclose(got.transpose(0, 2, 1), want, atol=1e-5,
-                               rtol=1e-5)
+    (jx, jw), (xt, wt) = _as(dtype, x, w)
+    want = _pallas_fwd(jx, jw, pad, tile=256, interpret=True)
+    got = ci1_conv.conv1d_ci1_reference(xt, wt, pad)
+    assert got.dtype == DTYPES[dtype][1]
+    _equal_or_close(got.transpose(1, 2), want, dtype, 1e-5)
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("T,pad", [(1000, (7, 7)), (777, (14, 0))])
-def test_plain_dx_matches_pallas_interpret(T, pad):
+def test_plain_dx_matches_pallas_interpret(T, pad, dtype):
     x, w, g = _inputs(2, T, sum(pad) + 1, 16, 1)
-    want = np.asarray(_pallas_dx(jnp.asarray(g), jnp.asarray(w), pad, T,
-                                 tile=256, interpret=True))
-    _, wt, gt = _port(x, w, g)
-    got = ci1_conv.conv1d_ci1_dx_reference(gt, wt, pad).numpy()
-    np.testing.assert_allclose(got.transpose(0, 2, 1), want, atol=1e-4,
-                               rtol=1e-4)
+    (_, jw, jg), (_, wt, gt) = _as(dtype, x, w, g)
+    want = _pallas_dx(jg, jw, pad, T, tile=256, interpret=True)
+    got = ci1_conv.conv1d_ci1_dx_reference(gt, wt, pad)
+    assert got.dtype == DTYPES[dtype][1]
+    _equal_or_close(got.transpose(1, 2), want, dtype, 1e-4)
 
 
 @pytest.mark.parametrize("T,pad", [(8192, (7, 7)), (1000, (14, 0)),
@@ -106,7 +130,8 @@ def test_function_computes_only_the_gradients_asked_for():
     assert xt.grad is not None and wt.grad is None
 
 
-@pytest.mark.parametrize("bad", ["two_channels", "k17", "pad", "float64"])
+@pytest.mark.parametrize("bad", ["two_channels", "k17", "pad", "float64",
+                                 "mixed"])
 def test_cuda_wrapper_checks_before_launching(bad):
     """The launchers refuse what the kernels do not take; the checks run
     before any library is built, so they run here without a card."""
@@ -120,18 +145,21 @@ def test_cuda_wrapper_checks_before_launching(bad):
         pad = (8, 8)
     elif bad == "pad":
         pad = (7, 8)
+    elif bad == "mixed":
+        xt = xt.to(torch.bfloat16)
     else:
         xt = xt.double()
     with pytest.raises((ValueError, TypeError)):
         ci1_conv.conv1d_ci1_cuda(xt, wt, pad)
 
 
-def _dx_like_the_kernel(g, w, pad_right, misalign0):
+def _dx_like_the_kernel(g, w, pad_right, misalign0, per=4):
     """Kernel B3's data gradient in numpy, staged as the kernel stages:
-    tiles of 1024 steps, each channel row copied in 16-byte pieces from
-    the aligned element before the window start (``misalign0`` is the
-    misalignment, in floats, of g's first element), zeros outside
-    [0, T), and read ``shift`` floats into the staged row."""
+    tiles of 1024 steps, each channel row copied in 16-byte pieces of
+    ``per`` values (4 float32, 8 bf16) from the aligned element before
+    the window start (``misalign0`` is the misalignment, in values, of
+    g's first element), zeros outside [0, T), and read ``shift`` values
+    into the staged row."""
     B, co, T = g.shape
     k = w.shape[-1]
     flat = g.reshape(-1)
@@ -144,15 +172,15 @@ def _dx_like_the_kernel(g, w, pad_right, misalign0):
             n_out = min(tile, T - t0)
             for c in range(co):
                 base = (b * co + c) * T
-                shift = (misalign0 + base + ts) % 4
+                shift = (misalign0 + base + ts) % per
                 e0 = base + ts - shift
-                n4 = -(-(shift + tile + k - 1) // 4)
-                row = np.zeros(4 * n4)
-                for q in range(n4):
-                    for i in range(4):
-                        te = e0 + 4 * q + i - base
+                pieces = -(-(shift + tile + k - 1) // per)
+                row = np.zeros(per * pieces)
+                for q in range(pieces):
+                    for i in range(per):
+                        te = e0 + per * q + i - base
                         if 0 <= te < T:
-                            row[4 * q + i] = flat[e0 + 4 * q + i]
+                            row[per * q + i] = flat[e0 + per * q + i]
                 for u in range(n_out):
                     dx[b, t0 + u] += row[shift + u:shift + u + k] @ taps[c]
     return dx[:, None, :]
@@ -171,3 +199,30 @@ def test_dx_staging_matches_plain_dx(T, pad, co, misalign0):
                               wt.numpy().astype(np.float64), pad[1],
                               misalign0)
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("T,pad,co,misalign0", [
+    (1001, (3, 4), 3, 0), (2050, (7, 7), 2, 5), (5, (0, 15), 1, 7),
+    (4100, (14, 0), 2, 3)])
+def test_dx_bf16_staging_matches_plain_dx(T, pad, co, misalign0):
+    """The bf16 instance of B3 stages pieces of 8 values, so its window
+    shifts run 0..7."""
+    k = sum(pad) + 1
+    _, w, g = _inputs(2, T, k, co, 6)
+    _, wt, gt = _port(np.zeros((2, T, 1), np.float32), w, g)
+    want = ci1_conv.conv1d_ci1_dx_reference(gt, wt, pad).numpy()
+    got = _dx_like_the_kernel(gt.numpy().astype(np.float64),
+                              wt.numpy().astype(np.float64), pad[1],
+                              misalign0, per=8)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_kernel_instances_by_dtype():
+    """One instance per operand dtype, all in one source and library."""
+    assert ci1_conv.kernels_for(torch.float32) == (ci1_conv.FORWARD,
+                                                   ci1_conv.DX)
+    assert ci1_conv.kernels_for(torch.bfloat16) == (ci1_conv.FORWARD_BF16,
+                                                    ci1_conv.DX_BF16)
+    assert len({k.library_path for k in (
+        ci1_conv.FORWARD, ci1_conv.DX, ci1_conv.FORWARD_BF16,
+        ci1_conv.DX_BF16)}) == 1

@@ -114,6 +114,96 @@ def test_function_backward_matches_jax_grad(monkeypatch):
     assert b1.grad is not None and w2.grad is not None and b2.grad is not None
 
 
+# B1's bf16 backward against the JAX package's bf16 VJP of the same unit,
+# per operand (x, w1, b1, w2, b2) the relative L2 distance, the bf16 port
+# within and the float32 port of the same operands beyond (measured:
+# bf16 port / float32 port)
+BF16_VJP_TOL = {"x": 5e-4,    # 0 / 2.9e-3
+                "w1": 1e-3,   # 1.9e-5 / 9.0e-3
+                "b1": 5e-4,   # 0 / 8.5e-3
+                "w2": 5e-4,   # 6.2e-5 / 3.0e-3
+                "b2": 3e-4}   # 0 / 1.8e-3
+
+
+def test_bf16_function_backward_matches_jax_vjp(monkeypatch):
+    """The arithmetic of B1-bf16's backward (autograd of the bf16 twin):
+    the autograd.Function's gradients of all five operands, the forward
+    launch swapped for the twin, against the VJP of the JAX package's
+    unfused unit (``Residual`` over a ``DilatedUnit``, what its bf16 train
+    step differentiates: the fused unit's ``custom_vjp`` backward, a VJP
+    of ``_reference_impl``, raises on bf16 operands, ROADMAP C) on the
+    same bf16 operands and cotangent, compiled with XLA's excess
+    precision off.  XLA on the CPU sums a bf16 bias gradient in bf16, so
+    each bias is held against the float32 sum of the JAX cotangent at its
+    conv's output (read as the gradient of a zero added there by flax's
+    method interceptor), rounded once to bf16.  The float32 port is the
+    control."""
+    import flax.linen as fnn
+
+    monkeypatch.setattr(ru, "residual_unit_cuda", ru.residual_unit_reference)
+    dilation, C = 3, 128
+    pl, pr = _pads(dilation)
+    bf = lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16)  # noqa: E731
+                              .astype(jnp.float32))
+    x, w1, b1, w2, b2 = map(bf, _inputs(C=C, T=80, B=2, seed=8))
+    g = jnp.asarray(np.random.default_rng(9).standard_normal(x.shape),
+                    jnp.bfloat16)
+    unit = jblocks.Residual(inner=jblocks.DilatedUnit(
+        dim=C, kernel_size=3, dilation=dilation, weight_norm=False),
+        inner_delay=0)
+    params = {"params": {"inner": {
+        "Conv1d_0": {"kernel": w1, "bias": b1},
+        "Conv1d_1": {"kernel": w2[None], "bias": b2}}}}
+    xb = jnp.asarray(x, jnp.bfloat16)
+    zeros = [jnp.zeros(x.shape, jnp.bfloat16)] * 2
+
+    def run(p, a, deltas):
+        added = iter(deltas)
+
+        def add(next_fun, args, kwargs, ctx):
+            y = next_fun(*args, **kwargs)
+            conv = (type(ctx.module).__name__ == "Conv1d"
+                    and ctx.method_name == "__call__")
+            return y + next(added) if conv else y
+
+        with fnn.intercept_methods(add):
+            return unit.apply(p, a)
+
+    def vjp(p, a, deltas):
+        return jax.vjp(run, p, a, deltas)[1](g)
+
+    gp, gx, gd = jax.jit(vjp).lower(params, xb, zeros).compile(
+        compiler_options={"xla_allow_excess_precision": False})(
+            params, xb, zeros)
+    convs = gp["params"]["inner"]
+
+    def f32(a):
+        return np.asarray(jnp.asarray(a).astype(jnp.float32))
+
+    def bias(c):
+        return f32(jnp.sum(c.astype(jnp.float32), (0, 1)).astype(
+            jnp.bfloat16))
+
+    want = [f32(gx).transpose(0, 2, 1),
+            f32(convs["Conv1d_0"]["kernel"]).transpose(2, 1, 0), bias(gd[0]),
+            f32(convs["Conv1d_1"]["kernel"])[0].T, bias(gd[1])]
+    gt = torch.from_numpy(f32(g).transpose(0, 2, 1).copy())
+    dist = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        ops = [t.to(dtype).requires_grad_(True)
+               for t in _to_port(x, w1, b1, w2, b2)]
+        ru._ResidualUnit.apply(*ops, dilation, pl, pr).backward(gt.to(dtype))
+        assert all(t.grad.dtype == dtype for t in ops)
+        dist[dtype] = {n: float(np.linalg.norm(t.grad.float().numpy() - w)
+                                / np.linalg.norm(w))
+                       for n, t, w in zip(BF16_VJP_TOL, ops, want)}
+    print("bf16 port", dist[torch.bfloat16], "float32 port",
+          dist[torch.float32])
+    for n, tol in BF16_VJP_TOL.items():
+        assert dist[torch.bfloat16][n] <= tol < dist[torch.float32][n], (
+            n, dist[torch.bfloat16][n], dist[torch.float32][n], tol)
+
+
 def _contract_like_the_kernel(x, w1k, b1, w2k, b2, dilation, pad_left):
     """The unit computed in float64 from the operands as kernel B1 reads
     them, tile by tile as its grid does: CTAs of 64 output channels x 64
@@ -185,8 +275,10 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 
 def test_kernel_registry():
-    assert KERNELS[0] is ru.KERNEL and len(KERNELS) == 4
+    from rave_tpu_torch.ops.kernels import ci1_conv as ci
+    assert KERNELS[0] is ru.KERNEL and len(KERNELS) == 6
     assert KERNELS[3] is ru.KERNEL_BF16
+    assert KERNELS[4:] == [ci.FORWARD_BF16, ci.DX_BF16]
     assert ru.KERNEL_BF16.library_path == ru.KERNEL.library_path
     assert all(k.source.is_file() for k in KERNELS)
     assert ru.KERNEL.library_path.parent.name == "_build"
