@@ -296,17 +296,22 @@ the last line:
    within 2e-4 of the one-process offline forward.
 
 17. bf16: ``compute_dtype=bfloat16`` serving (ROADMAP A10a) and kernel
-   B1's bf16 instance.  (a) B1-bf16 (``mma.sync.m16n8k16`` on bf16,
-   float32 accumulation, two roundings) over C in {128, 256, 384, 512},
-   k in {1, 3, 5}, dilations 1, 3, 9, T in {1, 333}, B in {1, 2} and a
-   window that takes chunks of 16: within 2 bf16 ulps of max |y| of its
-   plain twin (which rounds after each GEMM, bias and add, as the JAX
-   package's reference does), and nearer than the twin to float32
-   arithmetic on the same bf16 operands with the Pallas kernel's two
-   roundings (summed over the grid; at each shape of the bf16 paths:
-   the v2 forward's (4, 2048, 128), (4, 512, 256), (4, 256, 512) and
-   discrete's (4, 512, 384)), where call and device times stand beside
-   the twin's, with the bounds (989 TFLOP/s of dense bf16, 3.35 TB/s).
+   B1's bf16 instance.  (a) B1-bf16 (TMA ring, ``wgmma`` m64n64k16 on
+   bf16, float32 accumulation, two roundings) over C in {128, 256, 384,
+   512}, k in {1, 3, 5}, dilations 1, 3, 9, T in {1, 333}, B in {1, 2}
+   and d = 1000 (its launch the same as at d = 1: a wide dilation costs
+   no shared memory): within 2 bf16 ulps of max |y| of its plain twin
+   (which rounds after each GEMM, bias and add, as the JAX package's
+   reference does), and nearer than the twin to float32 arithmetic on
+   the same bf16 operands with the Pallas kernel's two roundings (summed
+   over the grid; at each shape of the bf16 paths: the v2 forward's (4,
+   2048, 128), (4, 512, 256), (4, 256, 512), phase 18's B = 8 ones and
+   discrete's (4, 512, 384)); there the launch geometry (64 x 64 tiles,
+   clusters of C / 64 CTAs of 288 threads), call times and device times
+   (CUDA events around a CUDA graph of 20 raw launches, and the
+   profiler's where it records one) beside the twin's, with the bounds
+   (989 TFLOP/s of dense bf16, 3.35 TB/s) and the sums per bf16 forward
+   and per bf16 train step.
    (b) The full-width ``v2`` batch (phase 3's weights,
    ``fused_kernels=true``) in bf16: 16 B1-bf16 launches (counted, and
    by ``torch.profiler``), no float32 B1, finite float32 audio between
@@ -449,6 +454,9 @@ NO_CI1_BF16 = {"ci1_conv_forward_bf16": 0, "ci1_conv_dx_bf16": 0}
 # real and fake together (B = 16) after the 1245-band-frame crop per
 # side: 131072 - 2 * 1245 * 16 = 91232 samples, halved twice
 CI1_MAIN = [(16, 91232), (16, 45616), (16, 22808)]
+# and each rank of phase 16's data-parallel step (4 rows of real and
+# fake); timed in phase 2 beside the main shapes, not summed with them
+CI1_DP = [(8, 91232), (8, 45616), (8, 22808)]
 
 
 T_START = time.perf_counter()
@@ -720,10 +728,11 @@ def ci1_bound(B, T, co, k):
     return flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
-def phase_ci1_kernels(torch, ci, main_shapes):
+def phase_ci1_kernels(torch, ci, main_shapes, dp_shapes=()):
     """Kernels B2 (forward) and B3 (data gradient) vs their plain twins
     on a grid, gradients through the autograd.Function, then times at
-    the main path's shapes."""
+    the main path's shapes (``path`` "main") and at a data-parallel
+    rank's (``path`` "dp")."""
     err = {"fwd": 0.0, "dx": 0.0}
     n = 0
     for T in (777, 1000, 4096, 8192, 91232):
@@ -785,9 +794,10 @@ def phase_ci1_kernels(torch, ci, main_shapes):
           "grad_max_abs_err_dw": grad_err[1], "tolerance": CI1_TOL})
 
     shapes = []
-    for B, T in main_shapes:
+    for (B, T), path in ([(s, "main") for s in main_shapes]
+                         + [(s, "dp") for s in dp_shapes]):
         x, w, gy = ci1_inputs(torch, B, T, 15, seed=T)
-        row = {"shape": [B, T, 16], "k": 15, "pad": [7, 7],
+        row = {"shape": [B, T, 16], "k": 15, "pad": [7, 7], "path": path,
                "dx_launch": ci.dx_launch_info(B, 16, 15, T)}
         with torch.no_grad():
             for name, cuda_fn, plain_fn, arg in (
@@ -4743,18 +4753,101 @@ BF16_STREAM_MEDIAN = 0.01  # the bf16 stream vs the offline bf16 forward
 BF16_VC_CHUNKS = 8       # 4096-sample chunks of the bf16 VoiceConverter
 
 
+B1_BF16_SYMBOL = "residual_unit_bf16_wgmma_kernel"
+B1_BF16_THREADS = 288     # two consumer warpgroups and one producer warp
+GRAPH_LAUNCHES = 20       # raw launches captured in one CUDA graph
+GRAPH_REPLAYS = 5         # replays of it timed by CUDA events
+RAW_REPEATS = 64          # raw launches held bit-equal to the wrapper's
+SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "LDSM", "SYNCS")
+
+
 def named_device_ms(torch, fn, name: str, iters: int = 20):
     """Device time in ms per call of ``fn`` of the kernels whose name
     holds ``name``, by :func:`device_profile` over ``iters`` calls; None
     where the profile recorded none of them.  Late in a whole run the
     profiler has recorded none of B1-bf16's kernels launched outside a
     model (run alone, the kernel and phase 17 had them recorded), and
-    none of the mel front end's in phase 15."""
+    none of the mel front end's in phase 15: :func:`graph_ms` is the
+    time that cannot drop out."""
     prof = device_profile(torch, lambda: [fn() for _ in range(iters)],
                           names=(name,))
     if not prof["named_count"][name]:
         return None
     return prof["named_ms"][name] / iters
+
+
+def graph_ms(torch, fn, n: int = GRAPH_LAUNCHES,
+             replays: int = GRAPH_REPLAYS) -> float:
+    """Device time of one call of ``fn`` in ms: CUDA events around
+    ``replays`` replays of a CUDA graph of ``n`` calls, so that no host
+    work sits between the launches and no profiler can drop one."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (n * replays)
+
+
+def b1_bf16_raw(torch, ru, args, d, pl, kernel=None):
+    """One B1-bf16 launch on operands prepared once (weights in the
+    kernel's layout, the output allocated): no wrapper work, what a CUDA
+    graph of raw launches replays.  ``kernel`` defaults to the port's
+    own; x must need no time padding (T % 8 == 0)."""
+    x, w1, b1, w2, b2 = args
+    w1k, w2k = ru.prepare_weights(w1, w2)
+    out = torch.empty_like(x)
+    B, C, T = x.shape
+    kern = kernel or ru.KERNEL_BF16
+    ptrs = [t.data_ptr() for t in (x, w1k, b1, w2k, b2, out)]
+
+    def launch():
+        kern.launch(*ptrs, B, C, T, w1.shape[-1], d, pl,
+                    torch.cuda.current_stream().cuda_stream)
+        return out
+    launch.operands = (w1k, w2k, out)  # kept alive with the closure
+    return launch
+
+
+def kernel_build_info(lib, name: str) -> dict:
+    """What ``nvcc -Xptxas -v`` printed for the kernels of the library
+    ``lib`` whose name holds ``name`` (registers, barriers, spills, any
+    wgmma note), and the counts of ``SASS_OPS`` in their SASS by
+    ``cuobjdump -sass``, or why there are none."""
+    from pathlib import Path
+    from rave_tpu_torch.ops.kernels.build import nvcc
+    ptxas, cur = [], False
+    for line in Path(lib).with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            cur = name in line
+        if cur or "wgmma" in line.lower():
+            ptxas.append(line.strip())
+    tool = Path(nvcc()).with_name("cuobjdump")
+    if not tool.is_file():
+        return {"ptxas": ptxas, "sass": f"no cuobjdump beside {nvcc()}"}
+    dump = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300).stdout
+    sass, fn = {}, None
+    for line in dump.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            fn = fn if name in fn else None
+            if fn:
+                sass[fn] = dict.fromkeys(SASS_OPS, 0)
+        elif fn:
+            for op in SASS_OPS:
+                sass[fn][op] += op in line
+    return {"ptxas": ptxas, "sass": sass}
 
 
 def bf16_ulp(y) -> float:
@@ -4793,18 +4886,26 @@ def b1_bf16_case(torch, ru, args, d, pl, pr) -> dict:
             "twin_sq": (twin.float() - ref).norm().item() ** 2}
 
 
-def phase_bf16_kernels(torch, ru, launches_per_shape) -> dict:
+def phase_bf16_kernels(torch, ru, launches_per_shape, parent=None) -> dict:
     """17(a): B1-bf16 over a grid (C in {128, 256, 384, 512}, k in {1, 3,
-    5}, the v2 dilations, odd T and T = 1, a window that takes chunks of
-    16) and at the shapes the bf16 paths give it: within
-    ``B1_BF16_ULPS`` of the twin; nearer the float32 contract than the
-    twin (at each main-path shape, and over the grid as a whole); then
-    call and device times beside the twin's, and the bounds."""
+    5}, the v2 dilations, odd T and T = 1, d = 1000) and at the shapes
+    the bf16 paths give it: within ``B1_BF16_ULPS`` of the twin; nearer
+    the float32 contract than the twin (at each main-path shape, and over
+    the grid as a whole); the launch geometry (64 x 64 tiles, clusters of
+    C / 64, a wide dilation costing no shared memory); ``RAW_REPEATS``
+    raw launches each bit-equal to the wrapper's output (a race in the
+    kernel shows as a launch that differs); then call times and device
+    times (CUDA graphs of raw launches, and the profiler's where it
+    records one) beside the twin's, and the bounds.  ``parent``, a
+    B1-bf16 kernel built from an earlier commit, is held to the same
+    ulps and timed in turns with this one: parent, new, new, parent."""
     bf = torch.bfloat16
     grid = [(k, C, d, T, B) for C in (128, 256, 384, 512) for k in (1, 3, 5)
             for d in (1, 3, 9) for T in (1, 333) for B in (1, 2)]
-    got = ru.launch_info(1, 128, 333, 3, 1000, bf)["chunk"]
-    check(got == 16, f"B1-bf16 d=1000: chunk {got}, expected 16")
+    wide = ru.launch_info(1, 128, 333, 3, 1000, bf)
+    narrow = ru.launch_info(1, 128, 333, 3, 1, bf)
+    check(wide == narrow, f"B1-bf16 d=1000: {wide}, d=1: {narrow} (a wide "
+          "dilation must cost no shared memory)")
     grid.append((3, 128, 1000, 333, 1))
     worst, sq_k, sq_t = {"ulps": 0.0, "max_abs_err": 0.0}, 0.0, 0.0
     for n, (k, C, d, T, B) in enumerate(grid):
@@ -4821,7 +4922,8 @@ def phase_bf16_kernels(torch, ru, launches_per_shape) -> dict:
     torch.cuda.empty_cache()
     emit({"phase": "bf16", "step": "kernel", "name": "residual_unit_bf16",
           "cases": len(grid), "worst": worst, "ulps_bound": B1_BF16_ULPS,
-          "grid_rel_l2_ratio_kernel_to_twin": (sq_k / sq_t) ** 0.5})
+          "grid_rel_l2_ratio_kernel_to_twin": (sq_k / sq_t) ** 0.5,
+          "launch_d1000": wide})
 
     shapes = []
     for (path, B, T, C, d), count in launches_per_shape.items():
@@ -4830,6 +4932,8 @@ def phase_bf16_kernels(torch, ru, launches_per_shape) -> dict:
         kernel = lambda: ru.residual_unit_cuda(*args, d, pl, pr)  # noqa: E731
         plain = lambda: ru.residual_unit_reference(  # noqa: E731
             *args, d, pl, pr)
+        raw = b1_bf16_raw(torch, ru, args, d, pl)
+        old = parent and b1_bf16_raw(torch, ru, args, d, pl, kernel=parent)
         with torch.inference_mode():
             r = b1_bf16_case(torch, ru, args, d, pl, pr)
             check(r["ulps"] <= B1_BF16_ULPS,
@@ -4838,18 +4942,33 @@ def phase_bf16_kernels(torch, ru, launches_per_shape) -> dict:
                   f"B1-bf16 {(B, T, C)} d={d}: kernel {r['kernel_rel_l2']} "
                   f"farther from the float32 contract than the twin "
                   f"{r['twin_rel_l2']}")
+            want = kernel().float()
+            raw_err = max((raw().float() - want).abs().max().item()
+                          for _ in range(RAW_REPEATS))
+            check(raw_err == 0, f"B1-bf16 {(B, T, C)} d={d}: a raw launch "
+                  f"of {RAW_REPEATS} differs from the wrapper's by {raw_err}")
+            if old:
+                twin = plain().float()
+                parent_ulps = ((old().float() - twin).abs().max().item()
+                               / bf16_ulp(twin))
+                check(parent_ulps <= B1_BF16_ULPS, f"B1-bf16 parent "
+                      f"{(B, T, C)} d={d}: {parent_ulps} ulps")
             plain_ms = cuda_ms(torch, plain)
             ms = cuda_ms(torch, kernel)
             ms2 = cuda_ms(torch, kernel)
             plain_ms2 = cuda_ms(torch, plain)
-            dev_ms = named_device_ms(torch, kernel,
-                                     "residual_unit_bf16_kernel")
-            plain_dev_ms = device_ms(torch, plain)
+            plain_dev = graph_ms(torch, plain)
+            runs = [graph_ms(torch, fn)
+                    for fn in ((old, raw, raw, old) if old else (raw, raw))]
+            dev, dev2 = runs[1:3] if old else runs
+            plain_dev2 = graph_ms(torch, plain)
+            prof_ms = named_device_ms(torch, kernel, B1_BF16_SYMBOL)
+            plain_prof_ms = device_ms(torch, plain)
         info = ru.launch_info(B, C, T, 3, d, bf)
         check(info["ctas"] == B * -(-T // 64) * (C // 64)
-              and info["cluster"] == C // 64,
-              f"B1-bf16 {(B, T, C)}: {info['ctas']} CTAs, cluster "
-              f"{info['cluster']}")
+              and info["cluster"] == C // 64
+              and info["threads"] == B1_BF16_THREADS,
+              f"B1-bf16 {(B, T, C)}: {info}")
         flops = 2 * B * T * C * C * 4
         nbytes = 2 * (2 * B * T * C + 4 * C * C + 2 * C)
         t_ops = flops / PEAK_BF16_FLOPS * 1e3
@@ -4860,14 +4979,32 @@ def phase_bf16_kernels(torch, ru, launches_per_shape) -> dict:
             **{k: r[k] for k in ("max_abs_err", "ulps", "kernel_rel_l2",
                                  "twin_rel_l2")},
             "ms": min(ms, ms2), "plain_ms": min(plain_ms, plain_ms2),
-            "device_ms": dev_ms, "plain_device_ms": plain_dev_ms,
+            "device_ms": min(dev, dev2),
+            "plain_device_ms": min(plain_dev, plain_dev2),
+            "device_ms_runs": [dev, dev2], "device_ms_worst": max(dev, dev2),
+            **({"parent_ulps": parent_ulps,
+                "parent_device_ms_runs": [runs[0], runs[3]],
+                "parent_device_ms": min(runs[0], runs[3])} if old else {}),
+            "profiler_device_ms": prof_ms,
+            "plain_profiler_device_ms": plain_prof_ms,
             "bound_ms": max(t_ops, t_bytes), "ops_ms": t_ops,
             "bytes_ms": t_bytes,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "gflop": flops / 1e9, "mbytes": nbytes / 1e6})
+        del raw, old
+    keys = ("ms", "plain_ms", "device_ms", "device_ms_worst",
+            "plain_device_ms", "bound_ms") + (
+        ("parent_device_ms",) if parent else ())
+    sums = {path: {key: sum(s[key] * s["launches_per_call"] for s in shapes
+                            if s["path"] == path)
+                   for key in keys}
+            for path in dict.fromkeys(s["path"] for s in shapes)}
     emit({"phase": "bf16", "step": "kernel_times",
-          "name": "residual_unit_bf16", "shapes": shapes})
-    return {"worst": worst, "shapes": shapes}
+          "name": "residual_unit_bf16", "shapes": shapes,
+          "device_ms": "CUDA events around a graph of "
+                       f"{GRAPH_LAUNCHES} raw launches x {GRAPH_REPLAYS}",
+          "per_call": sums})
+    return {"worst": worst, "shapes": shapes, "per_call": sums}
 
 
 def bf16_export(torch, state, device="cuda") -> dict:
@@ -4909,19 +5046,8 @@ def phase_bf16(torch, np, KERNELS, ru, audio, state, card, nv2, bfx,
     only = lambda n: {"residual_unit": 0, "ci1_conv_forward": 0,  # noqa: E731
                       "ci1_conv_dx": 0, "residual_unit_bf16": n,
                       **NO_CI1_BF16}
-    # (a) the kernel: the v2 forward's shapes (each (C, d) once in the
-    # encoder and once in the generator, batch 4) and discrete's C = 384
-    T0 = SAMPLES // 16
-    per_shape = {}
-    for C, T, dils in ((128, T0 // 4, (1, 3, 9)), (256, T0 // 16, (1, 3, 9)),
-                       (512, T0 // 32, (1, 3))):
-        for d in dils:
-            per_shape[("offline_v2", BATCH, T, C, d)] = 2
-            # phase 18's bf16 v2 and v2_fork D or G step (batch 8)
-            per_shape[("train_v2", TRAIN_BATCH, T, C, d)] = 2
-    for d in (1, 3, 9):
-        per_shape[("offline_discrete", BATCH, T0 // 16, 384, d)] = 2
-    kern = phase_bf16_kernels(torch, ru, per_shape)
+    # (a) the kernel at the bf16 paths' shapes
+    kern = phase_bf16_kernels(torch, ru, bf16_main_shapes())
 
     # (b) the offline batch in bf16 against the float32 one
     cfg = build_config(["v2"], BF16_OVER)
@@ -4944,9 +5070,8 @@ def phase_bf16(torch, np, KERNELS, ru, audio, state, card, nv2, bfx,
         check(BF16_MIN_REL_L2 <= rel <= BF16_REL_L2,
               f"bf16 vs float32 batch: {rel}")
         prof = device_profile(torch, lambda: model(x),
-                              names=("residual_unit_bf16_kernel",
-                                     "residual_unit_kernel"))
-        check(prof["named_count"] == {"residual_unit_bf16_kernel": 16,
+                              names=(B1_BF16_SYMBOL, "residual_unit_kernel"))
+        check(prof["named_count"] == {B1_BF16_SYMBOL: 16,
                                       "residual_unit_kernel": 0},
               f"bf16 forward profile: {prof['named_count']}")
         times, times32 = [], []
@@ -4963,8 +5088,8 @@ def phase_bf16(torch, np, KERNELS, ru, audio, state, card, nv2, bfx,
     emit({"phase": "bf16", "step": "offline", "card": card, "config": "v2",
           "overrides": BF16_OVER, "batch": [BATCH, SAMPLES, 1],
           "launches": launches, "profile_b1_bf16_count":
-          prof["named_count"]["residual_unit_bf16_kernel"],
-          "b1_bf16_share": prof["named_ms"]["residual_unit_bf16_kernel"]
+          prof["named_count"][B1_BF16_SYMBOL],
+          "b1_bf16_share": prof["named_ms"][B1_BF16_SYMBOL]
           / prof["device_ms"],
           "rel_l2_vs_float32": rel, "rel_l2_bound": BF16_REL_L2,
           "batch_ms": batch_ms, "batch_ms_float32": batch_ms32,
@@ -5650,6 +5775,68 @@ def main_parallel_cards(n: int) -> int:
     return 0
 
 
+def bf16_main_shapes() -> dict:
+    """The shapes the bf16 paths give B1-bf16, each mapped to its launches
+    per call: the bf16 v2 forward and convert (each (C, d) once in the
+    encoder and once in the generator, batch 4), phase 18's bf16 v2 and
+    v2_fork D or G step (batch 8) and the bf16 discrete forward (C =
+    384)."""
+    T0 = SAMPLES // 16
+    per_shape = {}
+    for C, T, dils in ((128, T0 // 4, (1, 3, 9)), (256, T0 // 16, (1, 3, 9)),
+                       (512, T0 // 32, (1, 3))):
+        for d in dils:
+            per_shape[("offline_v2", BATCH, T, C, d)] = 2
+            per_shape[("train_v2", TRAIN_BATCH, T, C, d)] = 2
+    for d in (1, 3, 9):
+        per_shape[("offline_discrete", BATCH, T0 // 16, 384, d)] = 2
+    return per_shape
+
+
+def main_b1_bf16_ab(parent: str) -> int:
+    """``chip_smoke.py --b1-bf16-ab DIR``: phase 17(a) with the B1-bf16
+    built from ``DIR/rave_tpu_torch/csrc/residual_unit.cu`` (an unpacked
+    earlier commit) timed in turns beside this checkout's at every bf16
+    main-path shape (:func:`phase_bf16_kernels`); fails unless the new
+    kernel's slower run is faster than the parent's faster run, per call
+    of each path.  Prints the phase's lines and the usual last two."""
+    from pathlib import Path
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: --b1-bf16-ab needs a CUDA card", file=sys.stderr)
+        return 1
+    from rave_tpu_torch.ops.kernels import residual_unit as ru
+    from rave_tpu_torch.ops.kernels.build import CudaKernel, build_all
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    emit({"phase": "device", "kind": kind, "nvidia_smi": smi})
+    src = Path(parent).resolve() / "rave_tpu_torch" / "csrc" / "residual_unit.cu"
+    old = CudaKernel("residual_unit_bf16_parent", str(src),
+                     "residual_unit_bf16_forward", ru._ARGS)
+    emit({"phase": "build", "seconds": build_all([ru.KERNEL_BF16, old]),
+          "new": kernel_build_info(ru.KERNEL_BF16.library_path,
+                                   B1_BF16_SYMBOL),
+          "parent": kernel_build_info(old.library_path,
+                                      "residual_unit_bf16_kernel")})
+    res = phase_bf16_kernels(torch, ru, bf16_main_shapes(), parent=old)
+    for path, s in res["per_call"].items():
+        check(s["device_ms_worst"] < s["parent_device_ms"],
+              f"B1-bf16 {path}: new {s['device_ms_worst']} ms per call, "
+              f"parent {s['parent_device_ms']}")
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5690,7 +5877,9 @@ def main() -> int:
              for line in lib.with_suffix(".log").read_text().splitlines()
              if "registers" in line or "spill" in line]
     emit({"phase": "build", "seconds": seconds,
-          "kernels": [k.name for k in KERNELS], "ptxas": ptxas})
+          "kernels": [k.name for k in KERNELS], "ptxas": ptxas,
+          "b1_bf16": kernel_build_info(ru.KERNEL_BF16.library_path,
+                                       B1_BF16_SYMBOL)})
 
     # shapes the paths give B1: 131072 samples = 8192 band frames per
     # item; C=128 at T=2048, 256 at 512, 512 at 256; each (C, d) once in
@@ -5719,7 +5908,7 @@ def main() -> int:
 
     # 2. kernels vs plain versions on the card
     max_err, shapes = phase_kernels(torch, ru, per_shape)
-    ci1_err, ci1_shapes = phase_ci1_kernels(torch, ci, CI1_MAIN)
+    ci1_err, ci1_shapes = phase_ci1_kernels(torch, ci, CI1_MAIN, CI1_DP)
 
     # 3. offline serving at full v2 width
     torch.manual_seed(SEED)
@@ -5980,7 +6169,8 @@ def _phases(torch, np, KERNELS, smi, kind, model, x, audio, launches,
     for name, key, line, launches in (
             ("ci1_conv_forward", "fwd", 46, g_launches["ci1_conv_forward"]),
             ("ci1_conv_dx", "dx", 73, g_launches["ci1_conv_dx"])):
-        per = lambda f: sum(s[key][f] for s in ci1_shapes)  # noqa: E731
+        per = lambda f, path="main": sum(  # noqa: E731
+            s[key][f] for s in ci1_shapes if s["path"] == path)
         src = "rave_tpu_torch/csrc/ci1_conv.cu"
         kernels.append({
             "name": name, "route": "cuda", "source": src, "src": src,
@@ -6006,14 +6196,17 @@ def _phases(torch, np, KERNELS, smi, kind, model, x, audio, launches,
             **a6_launches(a6, name),
             **hybrid_launches(name),
             **par_launches(name),
-            "library_ms": per("plain_ms")})
+            "library_ms": per("plain_ms"),
+            "dp_rank_step": {f: per(f, "dp") for f in (
+                "ms", "plain_ms", "device_ms", "plain_device_ms",
+                "bound_ms")}})
     # B1-bf16: the bf16 v2 forward's shapes; no PyTorch call computes B1
 
     def bsum(f, path="offline_v2"):
         vals = [(s[f], s["launches_per_call"]) for s in bf16["shapes"]
                 if s["path"] == path]
         if any(v is None for v, _ in vals):
-            return None     # a device time the profiler did not record
+            return None     # a time the profiler did not record
         return sum(v * n for v, n in vals)
 
     src = "rave_tpu_torch/csrc/residual_unit.cu"
@@ -6025,6 +6218,7 @@ def _phases(torch, np, KERNELS, smi, kind, model, x, audio, launches,
         "ms": bsum("ms"), "plain_ms": bsum("plain_ms"),
         "device_ms": bsum("device_ms"),
         "plain_device_ms": bsum("plain_device_ms"),
+        "profiler_device_ms": bsum("profiler_device_ms"),
         "bound_ms": bsum("bound_ms"),
         "bound_by": ("operations" if bsum("ops_ms") >= bsum("bytes_ms")
                      else "bytes"),
@@ -6038,7 +6232,8 @@ def _phases(torch, np, KERNELS, smi, kind, model, x, audio, launches,
             for k, v in bf16_train["launches_v2"].items()},
         "launches_bf16_stream_chunk": bf16["stream_chunk"],
         **{path: {k: bsum(k, path) for k in (
-            "ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms")}
+            "ms", "plain_ms", "device_ms", "plain_device_ms",
+            "profiler_device_ms", "bound_ms")}
            for path in ("offline_discrete", "train_v2")}})
     # B2/B3-bf16: one launch per MelGAN head and bf16 v2_fork step (B3
     # on G steps); the twin is one cuDNN call, so it is the library time
@@ -6080,4 +6275,6 @@ if __name__ == "__main__":
                           *sys.argv[5:7]))
     if sys.argv[1:2] == ["--parallel-cards"]:
         sys.exit(main_parallel_cards(int(sys.argv[2])))
+    if sys.argv[1:2] == ["--b1-bf16-ab"]:
+        sys.exit(main_b1_bf16_ab(sys.argv[2]))
     sys.exit(main())

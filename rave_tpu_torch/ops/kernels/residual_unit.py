@@ -98,6 +98,20 @@ def prepare_weights(w1, w2):
             w2.detach().contiguous())
 
 
+def pad_time(x):
+    """``(x, pad)``: x as the bf16 kernel reads it and the zeros appended
+    to its time axis.  The kernel reads x through TMA, which needs
+    16-byte row strides and a 16-byte aligned base, so T is padded to a
+    multiple of 8 (and a misaligned x copied).  The zeros only extend
+    the unit's own zero padding: the first T outputs are unchanged."""
+    if x.dtype != torch.bfloat16:
+        return x, 0
+    pad = -x.shape[-1] % 8
+    if pad:
+        return F.pad(x, (0, pad)), pad
+    return (x.clone() if x.data_ptr() % 16 else x), 0
+
+
 def residual_unit_cuda(x, w1, b1, w2, b2, dilation: int, pad_left: int,
                        pad_right: int) -> torch.Tensor:
     """Launch the CUDA kernel (forward only, no autograd)."""
@@ -107,28 +121,31 @@ def residual_unit_cuda(x, w1, b1, w2, b2, dilation: int, pad_left: int,
     b1, b2 = b1.detach().contiguous(), b2.detach().contiguous()
     if w1k.data_ptr() % 16 or w2k.data_ptr() % 16:
         raise ValueError("residual_unit: weights must be 16-byte aligned")
+    T = x.shape[-1]
+    x, pad = pad_time(x)
+    B, C, _ = x.shape
     out = torch.empty_like(x)
-    B, C, T = x.shape
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         kernel_for(x.dtype).launch(x.data_ptr(), w1k.data_ptr(), b1.data_ptr(),
                       w2k.data_ptr(), b2.data_ptr(), out.data_ptr(),
-                      B, C, T, w1.shape[-1], dilation, pad_left, stream)
-    return out
+                      B, C, T + pad, w1.shape[-1], dilation, pad_left, stream)
+    return out[..., :T].contiguous() if pad else out
 
 
 def launch_info(B: int, C: int, T: int, k: int, dilation: int,
                 dtype: torch.dtype = torch.float32) -> dict:
     """What one launch at this shape uses on the current card (the
     instance of ``dtype``): CTAs, cluster size, threads per CTA, dynamic
-    shared memory, registers per thread and the GEMM-1 chunk of input
-    channels."""
+    shared memory, registers per thread, and the GEMM-1 chunk of input
+    channels (float32) or the TMA ring's slots (bf16)."""
     info = (ctypes.c_int * 6)()
-    symbol = ("residual_unit_bf16_launch_info" if dtype == torch.bfloat16
+    bf16 = dtype == torch.bfloat16
+    symbol = ("residual_unit_bf16_launch_info" if bf16
               else "residual_unit_launch_info")
     kernel_for(dtype).query(symbol, B, C, T, k, dilation, info)
     return dict(zip(("ctas", "cluster", "threads", "smem_bytes",
-                     "registers", "chunk"), info))
+                     "registers", "stages" if bf16 else "chunk"), info))
 
 
 class _ResidualUnit(torch.autograd.Function):

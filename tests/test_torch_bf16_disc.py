@@ -224,10 +224,22 @@ def _bias_reference(member, params, xb, ws, shapes) -> dict:
     return tree
 
 
+def _native_shape(f, swap: bool) -> tuple:
+    """The shape :func:`_native` gives the abstract feature map ``f``."""
+    if isinstance(f, jdisc.PackedFeature):
+        B, _, T, pc = f.data.shape
+        shape = (B, f.valid_rows, T, pc // f.pout)
+    else:
+        shape = f.shape
+    shape = (shape[0], shape[-1], *shape[1:-1])
+    return (*shape[:2], shape[3], shape[2]) if swap else shape
+
+
 @pytest.fixture(scope="module")
 def jax_runs():
     """Per member: the JAX bf16 features (port layout), the gradients of
-    their weighted sum, the conv input dtypes and the parameters."""
+    their weighted sum, the conv input dtypes and the parameters.  One
+    abstract trace gives the maps' shapes and the dtype each conv reads."""
     x = _audio()
     out = {}
     for member in MEMBERS:
@@ -235,21 +247,6 @@ def jax_runs():
         xb = jnp.asarray(x, jnp.bfloat16)
         params = _params(jax.eval_shape(disc.init, jax.random.PRNGKey(0),
                                         xb), np.random.default_rng(0))
-        shapes = jax.eval_shape(disc.apply, params, xb)
-        swaps = _swaps(member, shapes)
-
-        def maps(p, a, swaps=swaps):
-            return [_native(f, sw) for f, sw in zip(
-                (f for chain in disc.apply(p, a) for f in chain), swaps)]
-
-        ws = _weights([f.shape for f in jax.eval_shape(maps, params, xb)])
-
-        def loss(p, a, ws=ws):
-            fs = maps(p, a)
-            return sum(jnp.sum(f * w) for f, w in zip(fs, ws)), fs
-
-        grad = jax.grad(loss, argnums=(0, 1), has_aux=True)
-        (gp, gx), flat = _exact_jit(grad, params, xb)(params, xb)
         reads = []
 
         def record(next_fun, args, kwargs, ctx):
@@ -262,7 +259,23 @@ def jax_runs():
             with fnn.intercept_methods(record):
                 return disc.apply(p, a)
 
-        jax.eval_shape(run, params, xb)
+        shapes = jax.eval_shape(run, params, xb)
+        swaps = _swaps(member, shapes)
+
+        def maps(p, a, swaps=swaps):
+            return [_native(f, sw) for f, sw in zip(
+                (f for chain in disc.apply(p, a) for f in chain), swaps)]
+
+        ws = _weights([_native_shape(f, sw) for f, sw in zip(
+            (f for chain in shapes for f in chain), swaps)])
+
+        def loss(p, a, ws=ws):
+            fs = maps(p, a)
+            return sum(jnp.sum(f * w) for f, w in zip(fs, ws)), fs
+
+        grad = jax.grad(loss, argnums=(0, 1), has_aux=True)
+        (gp, gx), flat = _exact_jit(grad, params, xb)(params, xb)
+        assert [f.shape for f in flat] == [w.shape for w in ws]
         first = np.cumsum([0] + [len(chain) for chain in shapes])[:-1]
         bias_ref = _bias_reference(member, params, xb, ws,
                                    [f.shape for f in flat])

@@ -106,6 +106,21 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
+_INIT = {}
+
+
+def _init_state(over):
+    """The JAX package's initial train state of ``v2`` with ``over``,
+    built once per configuration in this module: the ``crop`` case's run
+    and :func:`test_generator_gradient_matches` start from the same one
+    (its arrays are immutable; each user replaces the step)."""
+    key = tuple(over)
+    if key not in _INIT:
+        _INIT[key] = jloop.init_state(jbuild(["v2"], over),
+                                      jax.random.PRNGKey(0))
+    return _INIT[key]
+
+
 def _port_state(cfg, jstate, step):
     state = loop.TrainState(cfg, device="cpu", step=step)
     load_flax_params(state.model, _np(jstate.gen_params))
@@ -144,8 +159,7 @@ def run(request):
     over, start, kinds = CASES[request.param]
     jcfg, cfg = jbuild(["v2"], over), build_config(["v2"], over)
     start = cfg.phase_1_duration if start is None else start
-    jstate = jloop.init_state(jcfg, jax.random.PRNGKey(0))
-    jstate = jstate.replace(step=jnp.asarray(start, jnp.int32))
+    jstate = _init_state(over).replace(step=jnp.asarray(start, jnp.int32))
     state = _port_state(cfg, jstate, start)
     before = {k: v.clone() for k, v in _named(state).items()}
     x = (0.1 * np.random.default_rng(0).standard_normal(
@@ -229,8 +243,7 @@ def test_generator_gradient_matches():
     over = CASES["crop"][0]
     jcfg, cfg = jbuild(["v2"], over), build_config(["v2"], over)
     step = cfg.phase_1_duration + 1
-    jstate = jloop.init_state(jcfg, jax.random.PRNGKey(0))
-    jstate = jstate.replace(step=jnp.asarray(step, jnp.int32))
+    jstate = _init_state(over).replace(step=jnp.asarray(step, jnp.int32))
     x = (0.1 * np.random.default_rng(0).standard_normal(
         (cfg.batch_size, cfg.n_signal, 1))).astype(np.float32)
     rng = jax.random.PRNGKey(1)
