@@ -333,13 +333,23 @@ the last line:
 18. bf16_train: ``compute_dtype=bfloat16`` training (ROADMAP A10b) and
    the bf16 instances of kernels B2 and B3.  (a) B2-bf16 and B3-bf16
    over phase 2's grid (odd T, unaligned windows, k up to 16, co up to
-   64, T = 1): within 1 bf16 ulp of max |y| of float32 arithmetic on the
-   same bf16 operands rounded once (the Pallas kernels' contract), the
-   cuDNN bf16 twin's distance from it beside; dx and dw through the
-   ``autograd.Function`` against autograd of the twin (2 ulps); at the
-   three main-path shapes call and device times beside cuDNN's, and the
-   byte bound.  (b) B1-bf16's backward at the three B = 8 step shapes:
-   the gradients of all five operands through the kernel's
+   64, T = 1), B3-bf16's cp.async staging on aligned T (g a view at
+   storage offsets 1-7) and its TMA staging at co 1, 24, 64, k 2, 16 and
+   every window shift of k = 16: within 1 bf16 ulp of max |y| of float32 arithmetic on the same bf16
+   operands rounded once (the Pallas kernels' contract), the cuDNN bf16
+   twin's distance from it beside; dx and dw through the
+   ``autograd.Function`` against autograd of the twin (2 ulps); a launch
+   that is its host thread's first CUDA call equal to the main thread's;
+   at the three main-path shapes B3-bf16's geometry (a persistent grid
+   of two CTAs per SM, TMA staging), 64 raw launches bit-equal to the
+   first and to the wrapper's, call times, and device times by CUDA
+   events around CUDA graphs of raw launches, cold (over copies of the
+   operands, >= 100 MB between two reads of one copy) and warm, the
+   profiler's beside them, cuDNN's (cold) and, for B3, its cp.async
+   staging on the same work (g at storage offset 1) and a PyTorch sum of
+   g over its channels (the card's read rate), and the byte bound.
+   (b) B1-bf16's backward at the three B = 8 step shapes: the gradients
+   of all five operands through the kernel's
    ``autograd.Function`` against autograd of the plain bf16 composition
    on the card, within 2 ulps of each gradient's max |g| (cuDNN's bf16
    weight gradients may sum in another order per call).  The backward
@@ -373,6 +383,15 @@ the last line:
 with N NCCL ranks, one per card of one host, against one
 process on card 0, and ends with the same last two lines.
 
+``python3 chip_smoke.py --b1-bf16-ab DIR`` (``--b3-bf16-ab DIR``) runs
+phase 17(a) (18(a)) alone with the kernel also built from
+``DIR/rave_tpu_torch/csrc/`` (an unpacked earlier commit) and timed in
+turns with this checkout's, parent, new, new, parent; it fails unless
+the new kernel's slower run beats the parent's faster run: per call of
+each path for B1-bf16, at each main-path shape and per G step (cold) for
+B3-bf16.  ``--b3-bf16-ab`` also holds the parent's float32 B3 bit-equal
+to this checkout's.
+
 Phase 13's four packages compile in ``nice 19`` subprocesses started
 after phase 5 (the v2 ``forward``, then phase 17's bf16 one; the two
 streams are serialized there too, from weights saved under
@@ -398,6 +417,7 @@ checkout that holds ``rave_tpu_torch``, it exits non-zero with no result.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import shutil
@@ -4758,7 +4778,8 @@ B1_BF16_THREADS = 288     # two consumer warpgroups and one producer warp
 GRAPH_LAUNCHES = 20       # raw launches captured in one CUDA graph
 GRAPH_REPLAYS = 5         # replays of it timed by CUDA events
 RAW_REPEATS = 64          # raw launches held bit-equal to the wrapper's
-SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "LDSM", "SYNCS")
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "UTMASTG", "LDSM", "LDGSTS",
+            "SYNCS")
 
 
 def named_device_ms(torch, fn, name: str, iters: int = 20):
@@ -5231,6 +5252,12 @@ def phase_bf16(torch, np, KERNELS, ru, audio, state, card, nv2, bfx,
 
 # phase 18: bf16 training (ROADMAP A10b) and the bf16 instances of B2/B3
 CI1_BF16_ULPS = 1.0      # B2/B3-bf16 vs float32 arithmetic rounded once
+B3_BF16_SYMBOL = "ci1_dx_bf16_mma_kernel"
+B3_BF16_THREADS = 128    # four warps, each feeding its own ring
+B3_BF16_STAGES = 2       # slots of a warp's ring
+# cold device times: at least this many bytes pass between two reads
+# of one copy of a launch's operands (the H100's L2 holds 50 MB)
+COLD_BYTES = 100e6
 # B1-bf16's backward (autograd of the bf16 twin) against autograd of the
 # plain bf16 composition: the same arithmetic, but cuDNN's bf16 weight
 # gradients split their sums in an order that may change between calls
@@ -5288,11 +5315,53 @@ def ci1_bf16_case(torch, ci, x, w, gy, pad) -> dict:
     return out
 
 
-def phase_bf16_ci1_kernels(torch, ci, main_shapes) -> dict:
+def ci1_raw(torch, kern, big, w, out, pad_arg):
+    """One B2 or B3 launch of ``kern`` (this checkout's or an earlier
+    commit's) on operands prepared once, ``big`` x or g and ``out`` its
+    output: no wrapper work, what a CUDA graph of raw launches
+    replays."""
+    B, _, T = big.shape
+    args = (big.data_ptr(), w.data_ptr(), out.data_ptr(), B, w.shape[0],
+            w.shape[2], T, pad_arg)
+
+    def launch():
+        kern.launch(*args, torch.cuda.current_stream().cuda_stream)
+        return out
+    launch.operands = (big, w, out)  # kept alive with the closure
+    return launch
+
+
+def rotating(fns):
+    """A function that calls the next of ``fns`` each time, in turn: over
+    copies of the operands, a CUDA graph of a multiple of ``len(fns)``
+    calls reads each copy again only after every other one."""
+    calls = itertools.count()
+    return lambda: fns[next(calls) % len(fns)]()
+
+
+def cold_copies(nbytes: int) -> int:
+    """Copies of the operands of a launch that moves ``nbytes`` so that at
+    least ``COLD_BYTES`` pass between two reads of the same copy."""
+    return 1 + -(-int(COLD_BYTES) // nbytes)
+
+
+def phase_bf16_ci1_kernels(torch, ci, main_shapes, parent=None) -> dict:
     """18(a): B2-bf16 and B3-bf16 over phase 2's grid (odd T, unaligned
-    windows, k up to 16, co up to 64, T = 1), then at the main path's
-    shapes with call and device times, the cuDNN twin's (the library
-    call) and the byte bound."""
+    windows, k up to 16, co up to 64, T = 1), B3-bf16's cp.async staging
+    on aligned T (g a view at storage offsets 1-7) and its TMA staging at
+    co 1, 24, 64, k 2, 16 and every window shift of k = 16; then at the
+    main path's shapes: the launch geometry, ``RAW_REPEATS`` raw launches
+    of B3-bf16 each bit-equal to the first and to the wrapper's output,
+    call times, and device times by CUDA events around CUDA graphs of raw
+    launches, cold (over ``cold_copies`` copies of the operands) and warm
+    (one copy), the profiler's beside them, cuDNN's (the twin, the
+    library call) cold, B3-bf16's cp.async staging cold (g at storage
+    offset 1), and the byte bound.  ``parent``, the (bf16, float32) B3 kernels
+    built from an earlier commit, is held to the same ulps (bf16) and
+    bit-equal to this checkout's float32 B3, and its B3-bf16 timed cold
+    in turns with this one: parent, new, new, parent.  Returns the
+    worst errors, the rows and the B3-bf16 sums per shape and per G
+    step."""
     bf = torch.bfloat16
     worst = {n: {"max_abs_err": 0.0, "ulps": 0.0, "twin_ulps": 0.0}
              for n in ("fwd", "dx")}
@@ -5305,18 +5374,32 @@ def phase_bf16_ci1_kernels(torch, ci, main_shapes) -> dict:
                 worst[name][k] = max(worst[name][k], v[k])
 
     n = 0
-    cases = [(B, T, k, pad, 16) for T in (777, 1000, 4096, 8192, 91232)
+    cases = [(B, T, k, pad, 16, 0) for T in (777, 1000, 4096, 8192, 91232)
              for k in (5, 15) for pad in (((k - 1) // 2, k // 2), (k - 1, 0))
              for B in (1, 16)]
-    cases += [(3, T, k, pad, (1, 24, 64)[i % 3]) for i, (T, k, pad) in
+    cases += [(3, T, k, pad, (1, 24, 64)[i % 3], 0) for i, (T, k, pad) in
               enumerate((T, k, pad) for T in (1, 31, 1001, 8193)
                         for k in (2, 8, 16)
                         for pad in (((k - 1) // 2, k // 2), (0, k - 1)))]
-    for B, T, k, pad, co in cases:
+    # B3-bf16's cp.async staging on aligned T: g a view at storage offsets
+    # 1-7 (per-row shifts); its TMA staging at other widths and taps, and
+    # T = 1 and 8; TMA at every shift S = -pad_right mod 8 of k = 16 and at
+    # k = 15, pad_right 4, bands that end past three pieces (S + k > 17)
+    cases += [(1, T, 15, (7, 7), 16, off) for T in (8, 1024, 91232)
+              for off in range(1, 8)]
+    cases += [(2, T, k, pad, co, 0) for co in (1, 24, 64) for k in (2, 16)
+              for T in (1, 8, 4096)
+              for pad in (((k - 1) // 2, k // 2), (k - 1, 0))]
+    cases += [(1, 1024, 16, (15 - pr, pr), 16, 0) for pr in range(16)]
+    cases += [(1, 1024, 15, (10, 4), 16, 0)]
+    for B, T, k, pad, co, off in cases:
         x, w, gy = (t.to(bf) for t in ci1_inputs(torch, B, T, k, co=co,
                                                  seed=n))
+        if off:
+            gy = torch.cat([gy.new_zeros(off), gy.flatten()])[off:].view(
+                gy.shape)
         hold(ci1_bf16_case(torch, ci, x, w, gy, pad),
-             f"T={T} k={k} pad={pad} B={B} co={co}")
+             f"T={T} k={k} pad={pad} B={B} co={co} offset={off}")
         n += 1
     # dx and dw through the autograd.Function against autograd of the
     # plain bf16 composition (dw is cuDNN's in both)
@@ -5329,45 +5412,150 @@ def phase_bf16_ci1_kernels(torch, ci, main_shapes) -> dict:
                  / bf16_ulp(r.grad.float()) for a, r in zip(args, ref)]
     check(all(u <= B1_BF16_GRAD_ULPS for u in grad_ulps),
           f"B2/B3-bf16 autograd: dx, dw {grad_ulps} ulps")
+    # a launch that is the first CUDA call of its host thread (as in
+    # autograd's backward thread) equals the main thread's
+    import threading
+    got = []
+    th = threading.Thread(target=lambda: got.append(
+        ci.conv1d_ci1_dx_cuda(gy, w, (7, 7))))
+    th.start()
+    th.join()
+    check(len(got) == 1 and torch.equal(
+        got[0], ci.conv1d_ci1_dx_cuda(gy, w, (7, 7))),
+        "B3-bf16 launched from a new host thread")
     emit({"phase": "bf16_train", "step": "ci1_kernels", "cases": n,
           "worst": worst, "ulps_bound": CI1_BF16_ULPS,
           "autograd_ulps_dx_dw": grad_ulps})
 
+    old, old32 = parent or (None, None)
     shapes = []
     for B, T in main_shapes:
         x, w, gy = (t.to(bf) for t in ci1_inputs(torch, B, T, 15, seed=T))
         r = ci1_bf16_case(torch, ci, x, w, gy, (7, 7))
         hold(r, f"main-path shape {(B, T)}")
+        info = ci.dx_launch_info(B, 16, 15, T, bf)
+        # a persistent grid of two CTAs per SM, at most one (batch row,
+        # 128-step tile) pair per warp (a CTA has four); TMA staging
+        items = B * -(-T // 128)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        check(info["threads"] == B3_BF16_THREADS
+              and info["stages"] == B3_BF16_STAGES and info["tma"] == 1
+              and info["blocks"] == min(2 * sms, -(-items // 4)),
+              f"B3-bf16 {(B, T)}: {info}")
         row = {"shape": [B, T, 16], "k": 15, "pad": [7, 7],
-               "dx_launch": ci.dx_launch_info(B, 16, 15, T, bf)}
+               "dx_launch": info}
         with torch.no_grad():
-            for name, cuda_fn, plain_fn, arg, kname in (
-                    ("fwd", ci.conv1d_ci1_cuda, ci.conv1d_ci1_reference, x,
-                     "ci1_fwd_kernel"),
-                    ("dx", ci.conv1d_ci1_dx_cuda, ci.conv1d_ci1_dx_reference,
-                     gy, "ci1_dx_kernel")):
-                kernel = lambda: cuda_fn(arg, w, (7, 7))  # noqa: E731
-                plain = lambda: plain_fn(arg, w, (7, 7))  # noqa: E731
+            want = ci.conv1d_ci1_dx_cuda(gy, w, (7, 7))
+            raw = ci1_raw(torch, ci.DX_BF16, gy, w, torch.empty_like(want),
+                          7)
+            first = raw().clone()
+            same = sum(torch.equal(raw(), first) for _ in range(RAW_REPEATS))
+            check(same == RAW_REPEATS and torch.equal(first, want),
+                  f"B3-bf16 {(B, T)}: {RAW_REPEATS - same} of "
+                  f"{RAW_REPEATS} raw launches differ from the first, "
+                  f"first equal to the wrapper's: "
+                  f"{torch.equal(first, want)}")
+            if old:
+                twin = ci.conv1d_ci1_dx_reference(gy, w, (7, 7)).float()
+                got = ci1_raw(torch, old, gy, w, torch.empty_like(want), 7)()
+                parent_ulps = ((got.float() - twin).abs().max().item()
+                               / bf16_ulp(twin))
+                check(parent_ulps <= CI1_BF16_ULPS, f"B3-bf16 parent "
+                      f"{(B, T)}: {parent_ulps} ulps")
+                g32, w32 = gy.float(), w.float()
+                new32 = ci.conv1d_ci1_dx_cuda(g32, w32, (7, 7))
+                got32 = ci1_raw(torch, old32, g32, w32,
+                                torch.empty_like(new32), 7)()
+                check(torch.equal(new32, got32), f"float32 B3 {(B, T)}: "
+                      "this checkout's differs from the parent's")
+                row["parent_ulps"] = parent_ulps
+                row["float32_b3_equal_to_parent"] = True
+            for name, kern, cuda_fn, plain_fn, big, kname in (
+                    ("fwd", ci.FORWARD_BF16, ci.conv1d_ci1_cuda,
+                     ci.conv1d_ci1_reference, x, "ci1_fwd_kernel"),
+                    ("dx", ci.DX_BF16, ci.conv1d_ci1_dx_cuda,
+                     ci.conv1d_ci1_dx_reference, gy, B3_BF16_SYMBOL)):
+                kernel = lambda: cuda_fn(big, w, (7, 7))  # noqa: E731
+                plain = lambda: plain_fn(big, w, (7, 7))  # noqa: E731
+                out = kernel()
+                nbytes = 2 * (big.numel() + out.numel() + w.numel())
+                copies = cold_copies(nbytes)
+                bigs = [big] + [big.clone() for _ in range(copies - 1)]
+                raws = [ci1_raw(torch, kern, b_, w, torch.empty_like(out), 7)
+                        for b_ in bigs]
+                cold = rotating(raws)
+                plain_cold = rotating([
+                    lambda b_=b_: plain_fn(b_, w, (7, 7)) for b_ in bigs])
+                launches = copies * -(-GRAPH_LAUNCHES // copies)
                 # call times: plain, kernel, kernel, plain; best of each
                 plain_ms = cuda_ms(torch, plain)
                 ms = cuda_ms(torch, kernel)
                 ms2 = cuda_ms(torch, kernel)
                 plain_ms2 = cuda_ms(torch, plain)
+                olds = name == "dx" and old and rotating([
+                    ci1_raw(torch, old, b_, w, torch.empty_like(out), 7)
+                    for b_ in bigs])
+                runs = [graph_ms(torch, fn, launches) for fn in (
+                    (olds, cold, cold, olds) if olds else (cold, cold))]
+                dev, dev2 = runs[1:3] if olds else runs
+                if name == "dx":
+                    # B3-bf16's cp.async staging on the same shape and
+                    # work: each copy of g a view at storage offset 1
+                    offs = [torch.cat([b_.new_zeros(1), b_.flatten()])[1:]
+                            .view(b_.shape) for b_ in bigs]
+                    cpa = rotating([ci1_raw(torch, kern, b_, w,
+                                            torch.empty_like(out), 7)
+                                    for b_ in offs])
+                    cp_async_ms = min(graph_ms(torch, cpa, launches)
+                                      for _ in range(2))
+                    del offs, cpa
                 flops = 2 * B * T * 16 * 15
-                nbytes = 2 * (B * T + B * T * 16 + 15 * 16)
                 t_ops = flops / PEAK_F32_FLOPS * 1e3
                 t_bytes = nbytes / PEAK_BYTES * 1e3
-                row[name] = {**r[name], "ms": min(ms, ms2),
-                             "plain_ms": min(plain_ms, plain_ms2),
-                             "device_ms": named_device_ms(torch, kernel,
+                row[name] = {
+                    **r[name], "ms": min(ms, ms2),
+                    "plain_ms": min(plain_ms, plain_ms2),
+                    "device_ms": min(dev, dev2),
+                    "device_ms_runs": [dev, dev2],
+                    "device_ms_worst": max(dev, dev2),
+                    "device_ms_warm": graph_ms(torch, raws[0]),
+                    "cold_copies": copies,
+                    **({"parent_device_ms_runs": [runs[0], runs[3]],
+                        "parent_device_ms": min(runs[0], runs[3])}
+                       if olds else {}),
+                    "profiler_device_ms": named_device_ms(torch, kernel,
                                                           kname),
-                             "plain_device_ms": device_ms(torch, plain),
-                             "bound_ms": max(t_ops, t_bytes),
-                             "ops_ms": t_ops, "bytes_ms": t_bytes}
+                    "plain_device_ms": graph_ms(torch, plain_cold,
+                                                launches),
+                    "plain_profiler_device_ms": device_ms(torch, plain),
+                    # B3's: its cp.async staging, cold; the card's read
+                    # rate, one PyTorch call that only reads g (a sum
+                    # over its channels), cold
+                    **({"cp_async_device_ms": cp_async_ms,
+                        "read_device_ms": graph_ms(torch, rotating([
+                            lambda b_=b_: b_.sum(dim=1) for b_ in bigs]),
+                            launches)} if name == "dx" else {}),
+                    "bound_ms": max(t_ops, t_bytes), "ops_ms": t_ops,
+                    "bytes_ms": t_bytes}
+                del bigs, raws, cold, plain_cold, olds
         shapes.append(row)
+        torch.cuda.empty_cache()
+    keys = ("device_ms", "device_ms_worst", "device_ms_warm",
+            "cp_async_device_ms", "plain_device_ms", "read_device_ms",
+            "bound_ms") + (
+        ("parent_device_ms",) if parent else ())
+    per_call = {f"{s['shape']}": {k: s["dx"][k] for k in keys}
+                for s in shapes}
+    per_call["g_step"] = {k: sum(s["dx"][k] for s in shapes) for k in keys}
     emit({"phase": "bf16_train", "step": "ci1_kernel_times",
-          "shapes": shapes})
-    return {"worst": worst, "shapes": shapes}
+          "shapes": shapes,
+          "device_ms": "CUDA events around a graph of raw launches "
+                       f"(a multiple of the cold copies, at least "
+                       f"{GRAPH_LAUNCHES}) x {GRAPH_REPLAYS}; cold: "
+                       f">= {COLD_BYTES / 1e6:.0f} MB between two reads "
+                       "of a copy; warm: one copy",
+          "b3_bf16_per_call": per_call})
+    return {"worst": worst, "shapes": shapes, "per_call": per_call}
 
 
 def phase_bf16_b1_backward(torch, ru) -> dict:
@@ -5793,20 +5981,24 @@ def bf16_main_shapes() -> dict:
     return per_shape
 
 
-def main_b1_bf16_ab(parent: str) -> int:
-    """``chip_smoke.py --b1-bf16-ab DIR``: phase 17(a) with the B1-bf16
-    built from ``DIR/rave_tpu_torch/csrc/residual_unit.cu`` (an unpacked
-    earlier commit) timed in turns beside this checkout's at every bf16
-    main-path shape (:func:`phase_bf16_kernels`); fails unless the new
-    kernel's slower run is faster than the parent's faster run, per call
-    of each path.  Prints the phase's lines and the usual last two."""
+def main_ab(flag: str, parent: str) -> int:
+    """``chip_smoke.py --b1-bf16-ab DIR`` or ``--b3-bf16-ab DIR``: the
+    kernel phase of B1-bf16 (17(a)) or of B2/B3-bf16 (18(a)) with the
+    kernel built from ``DIR/rave_tpu_torch/csrc/`` (an unpacked earlier
+    commit) timed in turns beside this checkout's (parent, new, new,
+    parent); fails unless the new kernel's slower run is faster than the
+    parent's faster run, per call of each path (B1-bf16) or at each
+    main-path shape and per G step (B3-bf16, cold).  ``--b3-bf16-ab``
+    also holds the parent's float32 B3 bit-equal to this checkout's.
+    Prints the phase's lines and the usual last two."""
     from pathlib import Path
 
     import torch
 
     if not torch.cuda.is_available():
-        print("chip_smoke: --b1-bf16-ab needs a CUDA card", file=sys.stderr)
+        print(f"chip_smoke: {flag} needs a CUDA card", file=sys.stderr)
         return 1
+    from rave_tpu_torch.ops.kernels import ci1_conv as ci
     from rave_tpu_torch.ops.kernels import residual_unit as ru
     from rave_tpu_torch.ops.kernels.build import CudaKernel, build_all
 
@@ -5818,19 +6010,36 @@ def main_b1_bf16_ab(parent: str) -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "kind": kind, "nvidia_smi": smi})
-    src = Path(parent).resolve() / "rave_tpu_torch" / "csrc" / "residual_unit.cu"
-    old = CudaKernel("residual_unit_bf16_parent", str(src),
-                     "residual_unit_bf16_forward", ru._ARGS)
-    emit({"phase": "build", "seconds": build_all([ru.KERNEL_BF16, old]),
-          "new": kernel_build_info(ru.KERNEL_BF16.library_path,
-                                   B1_BF16_SYMBOL),
-          "parent": kernel_build_info(old.library_path,
-                                      "residual_unit_bf16_kernel")})
-    res = phase_bf16_kernels(torch, ru, bf16_main_shapes(), parent=old)
-    for path, s in res["per_call"].items():
+    csrc = Path(parent).resolve() / "rave_tpu_torch" / "csrc"
+
+    def parent_of(kern, mod):
+        return CudaKernel(f"{kern.name}_parent", str(csrc / kern.source.name),
+                          kern.symbol, mod._ARGS)
+
+    # the kernels compared, the names of their builds' functions (this
+    # checkout's, the parent's), and the phase run with the parent
+    if flag == "--b1-bf16-ab":
+        new, old = ru.KERNEL_BF16, [parent_of(ru.KERNEL_BF16, ru)]
+        names = (B1_BF16_SYMBOL, "residual_unit_bf16")
+
+        def run():
+            return phase_bf16_kernels(torch, ru, bf16_main_shapes(),
+                                      parent=old[0])["per_call"]
+    else:
+        new, old = ci.DX_BF16, [parent_of(k, ci) for k in (ci.DX_BF16,
+                                                           ci.DX)]
+        names = (B3_BF16_SYMBOL, "ci1_dx_kernelI13__nv_bfloat16Li15E")
+
+        def run():
+            return phase_bf16_ci1_kernels(torch, ci, CI1_MAIN,
+                                          parent=old)["per_call"]
+    emit({"phase": "build", "seconds": build_all([new, *old]),
+          "new": kernel_build_info(new.library_path, names[0]),
+          "parent": kernel_build_info(old[0].library_path, names[1])})
+    for path, s in run().items():
         check(s["device_ms_worst"] < s["parent_device_ms"],
-              f"B1-bf16 {path}: new {s['device_ms_worst']} ms per call, "
-              f"parent {s['parent_device_ms']}")
+              f"{new.name} {path}: new {s['device_ms_worst']} ms, parent "
+              f"{s['parent_device_ms']}")
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
@@ -5879,7 +6088,9 @@ def main() -> int:
     emit({"phase": "build", "seconds": seconds,
           "kernels": [k.name for k in KERNELS], "ptxas": ptxas,
           "b1_bf16": kernel_build_info(ru.KERNEL_BF16.library_path,
-                                       B1_BF16_SYMBOL)})
+                                       B1_BF16_SYMBOL),
+          "b3_bf16": kernel_build_info(ci.DX_BF16.library_path,
+                                       B3_BF16_SYMBOL)})
 
     # shapes the paths give B1: 131072 samples = 8192 band frames per
     # item; C=128 at T=2048, 256 at 512, 512 at 256; each (C, d) once in
@@ -6236,12 +6447,13 @@ def _phases(torch, np, KERNELS, smi, kind, model, x, audio, launches,
             "profiler_device_ms", "bound_ms")}
            for path in ("offline_discrete", "train_v2")}})
     # B2/B3-bf16: one launch per MelGAN head and bf16 v2_fork step (B3
-    # on G steps); the twin is one cuDNN call, so it is the library time
+    # on G steps); the twin is one cuDNN call, so it is the library time;
+    # device times cold (CUDA graphs of raw launches over copies)
     ci1b = bf16_train["ci1"]
     for name, key, line in (("ci1_conv_forward_bf16", "fwd", 46),
                             ("ci1_conv_dx_bf16", "dx", 73)):
         per = lambda f: sum(s[key][f] for s in ci1b["shapes"])  # noqa
-        dev = [s[key]["device_ms"] for s in ci1b["shapes"]]
+        prof = [s[key]["profiler_device_ms"] for s in ci1b["shapes"]]
         src = "rave_tpu_torch/csrc/ci1_conv.cu"
         kernels.append({
             "name": name, "route": "cuda", "source": src,
@@ -6256,7 +6468,9 @@ def _phases(torch, np, KERNELS, smi, kind, model, x, audio, launches,
             "twin_ulps_vs_float32_rounded_once":
                 ci1b["worst"][key]["twin_ulps"],
             "ms": per("ms"), "plain_ms": per("plain_ms"),
-            "device_ms": None if None in dev else sum(dev),
+            "device_ms": per("device_ms"),
+            "device_ms_warm": per("device_ms_warm"),
+            "profiler_device_ms": None if None in prof else sum(prof),
             "plain_device_ms": per("plain_device_ms"),
             "bound_ms": per("bound_ms"),
             "bound_by": ("operations" if per("ops_ms") >= per("bytes_ms")
@@ -6275,6 +6489,6 @@ if __name__ == "__main__":
                           *sys.argv[5:7]))
     if sys.argv[1:2] == ["--parallel-cards"]:
         sys.exit(main_parallel_cards(int(sys.argv[2])))
-    if sys.argv[1:2] == ["--b1-bf16-ab"]:
-        sys.exit(main_b1_bf16_ab(sys.argv[2]))
+    if sys.argv[1:2] in (["--b1-bf16-ab"], ["--b3-bf16-ab"]):
+        sys.exit(main_ab(sys.argv[1], sys.argv[2]))
     sys.exit(main())

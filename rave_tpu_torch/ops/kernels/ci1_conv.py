@@ -42,11 +42,14 @@ FORWARD_BF16 = CudaKernel("ci1_conv_forward_bf16", "ci1_conv.cu",
                           "ci1_conv_forward_bf16", _ARGS)
 DX_BF16 = CudaKernel("ci1_conv_dx_bf16", "ci1_conv.cu", "ci1_conv_dx_bf16",
                      _ARGS)
-# per operand dtype: the forward, the data gradient and the symbol that
-# reports the data gradient's launch
+# per operand dtype: the forward, the data gradient, the symbol that
+# reports the data gradient's launch and the fields it reports
 INSTANCES = {
-    torch.float32: (FORWARD, DX, "ci1_conv_dx_launch_info"),
-    torch.bfloat16: (FORWARD_BF16, DX_BF16, "ci1_conv_dx_bf16_launch_info"),
+    torch.float32: (FORWARD, DX, "ci1_conv_dx_launch_info",
+                    ("blocks", "threads", "smem_bytes", "registers")),
+    torch.bfloat16: (FORWARD_BF16, DX_BF16, "ci1_conv_dx_bf16_launch_info",
+                     ("blocks", "threads", "smem_bytes", "registers",
+                      "stages", "tma")),
 }
 
 
@@ -120,11 +123,13 @@ def dx_launch_info(B: int, co: int, k: int, T: int,
                    dtype: torch.dtype = torch.float32) -> dict:
     """What one launch of kernel B3 (the instance of ``dtype``) at this
     shape uses on the current card: blocks, threads per block, shared
-    memory and registers per thread."""
-    info = (ctypes.c_int * 4)()
-    _, dx, symbol = INSTANCES[dtype]
+    memory and registers per thread; for bf16 also the slots of a warp's
+    ring and whether it stages by TMA (1, for a 16-byte aligned g) or by
+    cp.async (0)."""
+    _, dx, symbol, fields = INSTANCES[dtype]
+    info = (ctypes.c_int * len(fields))()
     dx.query(symbol, B, co, k, T, info)
-    return dict(zip(("blocks", "threads", "smem_bytes", "registers"), info))
+    return dict(zip(fields, info))
 
 
 def _on(device: torch.device, cuda_fn, plain_fn, *args) -> torch.Tensor:
